@@ -47,6 +47,11 @@ def pytest_configure(config):
         "sweep; excluded by default (VERDICT r2 #4), run with --slow or "
         "-m slow",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

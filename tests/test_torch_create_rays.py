@@ -1,0 +1,153 @@
+"""The port's main path end to end against the JAX package's.
+
+``zoic_tpu.create_rays`` (fused kernel, interpret mode on the CPU) and
+``zoic_tpu_torch.create_rays`` (plain PyTorch version on the CPU) on the
+same state, samples and seed: the seed is the JAX path's own draw
+``jax.random.randint(key, (), 0, 1 << 22)`` (``models/raytraced.py``),
+handed to the port as an int.  The whole RayBatch and all four RayStats
+must match: weights and counters exactly, origins, directions and the
+fake derivatives to 1e-5 on rays within the budget and to 1e-3 on all.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import zoic_tpu as zt
+from zoic_tpu.io import state as jax_state_io
+
+import zoic_tpu_torch as zpt
+from zoic_tpu_torch.models import common
+
+N = 16 * 128 + 77
+
+
+def _cfgs(**kw):
+    common_kw = dict(
+        lens_data_path=zt.data.lens_path("double_gauss_f2.0"),
+        focal_length=5.0, fstop=2.0, focal_distance=100.0,
+    )
+    common_kw.update(kw)
+    return (
+        zt.CameraConfig(lens_model=zt.LensModel.RAYTRACED, impl="pallas",
+                        **common_kw),
+        zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED, **common_kw),
+    )
+
+
+@pytest.fixture(scope="module")
+def states():
+    path = zpt.data.state_path()
+    return jax_state_io.load(path), zpt.load_state(path)
+
+
+def _samples(n, seed=21):
+    rng = np.random.default_rng(seed)
+    return [
+        rng.uniform(-1, 1, n).astype(np.float32),
+        rng.uniform(-1, 1, n).astype(np.float32),
+        rng.uniform(0, 1, n).astype(np.float32),
+        rng.uniform(0, 1, n).astype(np.float32),
+    ]
+
+
+@pytest.mark.parametrize("exposure", [0.0, 0.5, -0.5])
+def test_create_rays_matches_jax(states, exposure):
+    js, st = states
+    js = dataclasses.replace(js, exposure_control=jnp.float32(exposure))
+    st = dataclasses.replace(
+        st, exposure_control=torch.tensor(exposure, dtype=torch.float32))
+    jcfg, tcfg = _cfgs()
+    s = _samples(N)
+    key = jax.random.PRNGKey(42)
+    jr, jstats = zt.create_rays(js, jcfg, *(jnp.asarray(a) for a in s),
+                                key)
+    seed = int(jax.random.randint(key, (), 0, 1 << 22))
+    tr, tstats = zpt.create_rays(st, tcfg, *(torch.from_numpy(a) for a in s),
+                                 seed=seed)
+
+    for f in ("success", "vignetted", "tir", "tries_total"):
+        got, ref = getattr(tstats, f), getattr(jstats, f)
+        assert got.dtype == torch.int32, f
+        assert int(got) == int(ref), f
+    np.testing.assert_array_equal(tr.weight.numpy(), np.asarray(jr.weight))
+    live = np.asarray(jr.weight) > 0
+    for f in ("origin", "dir", "d_ody", "d_ddy"):
+        got, ref = getattr(tr, f).numpy(), np.asarray(getattr(jr, f))
+        assert got.shape == ref.shape == (N, 3), f
+        np.testing.assert_allclose(got[live], ref[live], rtol=0, atol=1e-5,
+                                   err_msg=f)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3, err_msg=f)
+    # exposure scales the weight of every live ray
+    expect = {0.0: 1.0, 0.5: np.float32(1.25), -0.5: np.float32(1 / 1.25)}
+    np.testing.assert_allclose(tr.weight.numpy()[live], expect[exposure],
+                               rtol=1e-7)
+    assert int(tstats.tries_total) > 0  # retries happened
+
+
+def test_generator_seed_is_deterministic(states):
+    _, st = states
+    _, tcfg = _cfgs()
+    s = [torch.from_numpy(a) for a in _samples(300, seed=5)]
+    out = []
+    for _ in range(2):
+        g = torch.Generator().manual_seed(9)
+        out.append(zpt.create_rays(st, tcfg, *s, generator=g))
+    np.testing.assert_array_equal(out[0][0].origin.numpy(),
+                                  out[1][0].origin.numpy())
+    assert int(out[0][1].tries_total) == int(out[1][1].tries_total)
+    with pytest.raises(ValueError, match="seed or a torch.Generator"):
+        zpt.create_rays(st, tcfg, *s)
+
+
+def test_weight_quirk_26th_success_is_vignetted():
+    """weight is 0 iff tries > max_tries: a ray whose last retry
+    succeeded still leaves the loop with tries == max_tries + 1."""
+    tries = torch.tensor([0, 1, 25, 26], dtype=torch.int32)
+    weight, n_ok, n_vig = common.weight_and_stats(tries, 25)
+    np.testing.assert_array_equal(weight.numpy(), [1.0, 1.0, 1.0, 0.0])
+    assert n_ok.dtype == torch.int32 and int(n_ok) == 3 and int(n_vig) == 1
+    o = torch.ones(4, 3)
+    d_o, d_d = common.fake_derivatives(tries, o, 2 * o)
+    np.testing.assert_array_equal(d_o[:, 0].numpy(), [0, 1, 1, 1])
+    np.testing.assert_array_equal(d_d[:, 0].numpy(), [0, 2, 2, 2])
+
+
+def _harmonic(st):
+    return dataclasses.replace(st, lens=dataclasses.replace(
+        st.lens, profile=dataclasses.replace(st.lens.profile,
+                                             kind="harmonic")))
+
+
+def _chain(st):
+    return dataclasses.replace(
+        st, lens=dataclasses.replace(st.lens, profile_poly=False))
+
+
+@pytest.mark.parametrize(
+    "cfg_kw,state_fn,item",
+    [
+        (dict(lens_model=zpt.LensModel.THINLENS), None, "item 2"),
+        (dict(use_image=True, bokeh_path="bokeh.npy"), None, "item 3"),
+        (dict(kolb_sampling_lut=False), None, "item 1"),
+        (dict(pupil_precheck=False), None, "item 1"),
+        ({}, _harmonic, "item 1"),
+        ({}, _chain, "item 1"),
+    ],
+    ids=["thinlens", "use_image", "naive", "no-precheck", "harmonic",
+         "select-chain"],
+)
+def test_out_of_slice_configs_raise(states, cfg_kw, state_fn, item):
+    _, st = states
+    if state_fn is not None:
+        st = state_fn(st)
+    cfg = zpt.CameraConfig(**{**dict(
+        lens_model=zpt.LensModel.RAYTRACED, lens_data_path="dg",
+        focal_length=5.0, fstop=2.0, focal_distance=100.0), **cfg_kw})
+    z = torch.zeros(8)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        zpt.create_rays(st, cfg, z, z, z, z, seed=1)
