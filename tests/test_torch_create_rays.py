@@ -131,15 +131,14 @@ def _chain(st):
 @pytest.mark.parametrize(
     "cfg_kw,state_fn,item",
     [
-        (dict(lens_model=zpt.LensModel.THINLENS), None, "item 2"),
-        (dict(use_image=True, bokeh_path="bokeh.npy"), None, "item 3"),
+        (dict(use_image=True, bokeh_path="bokeh.npy"), None,
+         r"item 3 \(raytraced \+ image bokeh\)"),
         (dict(kolb_sampling_lut=False), None, "item 1"),
         (dict(pupil_precheck=False), None, "item 1"),
         ({}, _harmonic, "item 1"),
         ({}, _chain, "item 1"),
     ],
-    ids=["thinlens", "use_image", "naive", "no-precheck", "harmonic",
-         "select-chain"],
+    ids=["use_image", "naive", "no-precheck", "harmonic", "select-chain"],
 )
 def test_out_of_slice_configs_raise(states, cfg_kw, state_fn, item):
     _, st = states

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import zoic_tpu_torch as zpt
+from zoic_tpu_torch.ops import bokeh_kernel as bk
 from zoic_tpu_torch.ops import trace_kernel as tk
 
 SEED = 12345
@@ -25,11 +26,27 @@ def _inputs(n, seed):
     return [torch.from_numpy(c.astype(np.float32)).cuda() for c in cols]
 
 
-@pytest.fixture
-def cuda_state():
+def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.fixture
+def cuda_state():
+    _need_cuda()
     return zpt.load_state(zpt.data.state_path(), device="cuda")
+
+
+@pytest.fixture
+def cuda_dev():
+    _need_cuda()
+    return torch.device("cuda")
+
+
+def _disk(n=64):
+    yy, xx = np.mgrid[-1:1:n * 1j, -1:1:n * 1j]
+    img = ((xx**2 + yy**2) < 0.8).astype(np.float32)
+    return np.stack([img, img, img], -1)
 
 
 @pytest.mark.cuda
@@ -74,3 +91,101 @@ def test_create_rays_on_cuda(cuda_state):
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert bool(torch.isfinite(rays.origin).all())
     assert rays.weight.is_cuda and rays.weight.shape == (65_536,)
+
+
+THIN_BRANCHES = {
+    "pinhole": dict(use_dof=False, has_ov=False),
+    "dof": dict(use_dof=True, has_ov=False),
+    "dof-vignette": dict(use_dof=True, has_ov=True),
+    "dof-bokeh": dict(use_dof=True, has_ov=False, presampled=True),
+    "dof-bokeh-vignette": dict(use_dof=True, has_ov=True, presampled=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16 * 128 + 77, 300_000])
+@pytest.mark.parametrize("branch", list(THIN_BRANCHES))
+def test_thinlens_kernel_matches_plain(cuda_dev, branch, n):
+    """tries equal but for at most 1 ray in 10,000 and payloads within
+    1e-5 (the kernel is built to round as the plain version does, so both
+    are in practice equal); strong vignetting, so retries run to the
+    budget, and retry planes of a quarter batch."""
+    flags = THIN_BRANCHES[branch]
+    rng = np.random.default_rng(n)
+    lo = -1.0 if flags.get("presampled") else 0.0
+    cols = [rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+            rng.uniform(lo, 1, n), rng.uniform(lo, 1, n)]
+    args = [torch.from_numpy(c.astype(np.float32)).to(cuda_dev) for c in cols]
+    bp = max(128, n // 4)
+    planes = {}
+    if flags.get("presampled") and flags["has_ov"]:
+        planes = {k: torch.from_numpy(rng.uniform(-1, 1, (4, bp)).astype(
+            np.float32)).to(cuda_dev) for k in ("retry_u1", "retry_u2")}
+    scal = [torch.tensor(v, device=cuda_dev)
+            for v in (0.36, 1.7857143, 100.0, 6.0, 0.35)]
+    before = tk.thinlens_launches
+    ko, kd, kt = tk.thinlens_fused(*args, *scal, SEED, max_tries=25,
+                                   **flags, **planes)
+    assert tk.thinlens_launches == before + 1
+    po, pd, pt = tk.thinlens_plain(*args, *scal, SEED, max_tries=25,
+                                   **flags, **planes)
+    torch.cuda.synchronize()
+    assert ko.is_cuda and kt.dtype == torch.int32
+    assert int((kt != pt).sum()) <= max(1, n // 10_000)
+    same = kt == pt
+    assert float((ko - po)[same].abs().max()) <= 1e-5
+    assert float((kd - pd)[same].abs().max()) <= 1e-5
+    if flags["has_ov"]:
+        assert int(kt.max()) == 26
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,n",
+    [((64, 64), 1), ((64, 64), 77), ((48, 80), 100_000), ((40, 36), 4096),
+     ((256, 8), 65_536), ((300, 200), 65_536)],
+)
+def test_bokeh_kernel_matches_plain_bit_for_bit(cuda_dev, shape, n):
+    """Every image size the host build makes, beyond the TPU kernel's
+    128-pixel gate, with draws on the CDF entries themselves."""
+    h, w = shape
+    rng = np.random.default_rng(h * w + n)
+    pixels = _disk(64) if shape == (64, 64) else rng.random(
+        (h, w, 3), dtype=np.float32)
+    if shape == (40, 36):
+        pixels[::3] = 0.0
+    image = zpt.bokeh.build(pixels).to(cuda_dev)
+    u1 = rng.uniform(0, 1, n).astype(np.float32)
+    u2 = rng.uniform(0, 1, n).astype(np.float32)
+    k = min(n, h)
+    u1[:k] = image.cdf_row.cpu().numpy()[:k]
+    u2[:k] = image.cdf_col.cpu().numpy()[:k, min(3, w - 1)]
+    u1, u2 = (torch.from_numpy(u).to(cuda_dev) for u in (u1, u2))
+    before = bk.launches
+    kdx, kdy = bk.sample_fused(image, u1, u2)
+    assert bk.launches == before + 1
+    pdx, pdy = bk.sample_plain(image, u1, u2)
+    torch.cuda.synchronize()
+    assert torch.equal(kdx.view(torch.int32), pdx.view(torch.int32))
+    assert torch.equal(kdy.view(torch.int32), pdy.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_thinlens_create_rays_on_cuda(cuda_dev, tmp_path):
+    path = str(tmp_path / "disk.npy")
+    np.save(path, _disk())
+    cfg = zpt.CameraConfig(
+        lens_model=zpt.LensModel.THINLENS, focal_length=5.0, fstop=1.4,
+        focal_distance=100.0, use_image=True, bokeh_path=path,
+        optical_vignetting_distance=2.0, optical_vignetting_radius=0.8,
+    )
+    state = zpt.compile_camera(cfg, cuda_dev)
+    sx, sy, lx, ly = _inputs(65_536, seed=2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t0, b0 = tk.thinlens_launches, bk.launches
+    rays, stats = zpt.create_rays(state, cfg, sx, sy, lx, ly, generator=g)
+    torch.cuda.synchronize()
+    assert tk.thinlens_launches == t0 + 1 and bk.launches == b0 + 2
+    assert int(stats.success) + int(stats.vignetted) == 65_536
+    assert int(stats.tries_total) > 0
+    assert bool(torch.isfinite(rays.dir).all()) and rays.dir.is_cuda

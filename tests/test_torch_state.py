@@ -133,7 +133,9 @@ def _rewrite(src, dst, *, static_update=None, drop_last_leaf=False):
     [
         (dict(static_update={"format": 6}), "unsupported state format"),
         (dict(drop_last_leaf=True), "leaves"),
-        (dict(static_update={"has_bokeh": True}), "BokehImage"),
+        # claims a bokeh image but holds no bokeh tables
+        (dict(static_update={"has_bokeh": True, "bokeh_wh": [4, 4]}),
+         "leaves"),
     ],
     ids=["format", "leaf-count", "bokeh"],
 )
@@ -154,6 +156,7 @@ def test_state_fields_follow_jax_field_order():
         (jsys.LensSystem, system.LensSystem),
         (jsys.PupilLUT, system.PupilLUT),
         (jsys.PupilProfile, system.PupilProfile),
+        (jsys.BokehImage, system.BokehImage),
     ):
         jnames = [f.name for f in dataclasses.fields(jcls)]
         tnames = [f.name for f in dataclasses.fields(tcls)]

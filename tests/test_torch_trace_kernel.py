@@ -185,3 +185,22 @@ def test_wrapper_refuses_unported_variants(states):
     with pytest.raises(ValueError, match="seed"):
         tk.raytraced_fused(st.lens, z, z, z, z, st.sensor_width, 1 << 22,
                            max_tries=2)
+
+
+def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
+    """A library is keyed by its source and every shared ``csrc/*.cuh``:
+    an edit to a header builds anew."""
+    from zoic_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    d1 = _build.source_digest("k")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    d2 = _build.source_digest("k")
+    (tmp_path / "extra.cuh").write_text("// new\n")
+    d3 = _build.source_digest("k")
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edit\n')
+    d4 = _build.source_digest("k")
+    assert len({d1, d2, d3, d4}) == 4 and len(d1) == 16
+    assert _build.source_digest("k") == d4

@@ -1,9 +1,9 @@
 """zoic_tpu_torch: the PyTorch / CUDA port of zoic-tpu for NVIDIA Hopper.
 
 It sits beside the JAX package ``zoic_tpu``, keeps its module names, and
-imports neither jax nor ``zoic_tpu``.  This first slice runs the raytraced
-main path (exit-pupil LUT, pupil pre-check) on a camera state that the JAX
-package compiled::
+imports neither jax nor ``zoic_tpu``.  It runs the raytraced main path
+(exit-pupil LUT, pupil pre-check) on a camera state that the JAX package
+compiled::
 
     import torch
     import zoic_tpu_torch as zt
@@ -18,18 +18,29 @@ package compiled::
     rays, stats = zt.create_rays(state, cfg, sx, sy, lensx, lensy,
                                  generator=g)
 
-On CUDA tensors the per-ray work runs in the hand-written kernel
-``csrc/raytraced.cu``, built with ``nvcc`` at first use; on CPU tensors in
-its plain PyTorch version.
+and the thin-lens model (pinhole, depth of field, empirical vignetting,
+image bokeh) from its config alone::
+
+    cfg = zt.CameraConfig(lens_model=zt.LensModel.THINLENS,
+                          focal_length=5.0, fstop=1.4, focal_distance=100.0)
+    state = zt.compile_camera(cfg, device="cuda")
+    rays, stats = zt.create_rays(state, cfg, sx, sy, lensx, lensy,
+                                 generator=g)
+
+On CUDA tensors the per-ray work runs in the hand-written kernels
+``csrc/raytraced.cu``, ``csrc/thinlens.cu`` and ``csrc/bokeh.cu``, built
+with ``nvcc`` at first use; on CPU tensors in their plain PyTorch versions.
 """
 
-from . import data, io
-from .camera import create_rays
+from . import bokeh, data, io
+from .camera import compile_camera, create_rays
 from .config import CameraConfig, DebugOptions, LensModel
 from .io.state import load as load_state
-from .system import CameraState, LensSystem, PupilLUT, PupilProfile, RayBatch, RayStats
+from .system import (BokehImage, CameraState, LensSystem, PupilLUT,
+                     PupilProfile, RayBatch, RayStats)
 
 __all__ = [
+    "BokehImage",
     "CameraConfig",
     "CameraState",
     "DebugOptions",
@@ -39,6 +50,8 @@ __all__ = [
     "PupilProfile",
     "RayBatch",
     "RayStats",
+    "bokeh",
+    "compile_camera",
     "create_rays",
     "data",
     "io",

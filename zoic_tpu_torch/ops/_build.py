@@ -2,8 +2,10 @@
 
 Each ``zoic_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on first use into ``build/zoic_tpu_torch/lib<name>-<hash>.so`` at
-the repository root, where ``<hash>`` is the source's SHA-256 prefix, so an
-edited source is rebuilt and an unchanged one is reused.  The target is
+the repository root, where ``<hash>`` is a SHA-256 prefix over the source and
+every shared header ``csrc/*.cuh``, so an edit to either is rebuilt and an
+unchanged tree is reused.  :func:`load_all` builds several sources at once,
+one ``nvcc`` process each.  The target is
 Hopper (``sm_90a``); fma contraction is off (``--fmad=false``) so that the
 kernels round like the eager PyTorch versions they are held against.
 There is no fallback: a failed build raises.
@@ -12,10 +14,13 @@ There is no fallback: a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -44,15 +49,27 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """SHA-256 prefix over ``csrc/<name>.cu`` and every ``csrc/*.cuh`` (by
+    file name and content), the key of the built library."""
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [os.path.join(CSRC, f"{name}.cu"), *headers]:
+        with open(path, "rb") as f:
+            data = f.read()
+        h.update(os.path.basename(path).encode())
+        h.update(len(data).to_bytes(8, "little"))
+        h.update(data)
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
-    if no library of the current source exists."""
+    if no library of the current sources exists."""
     if name in _LIBS:
         return _LIBS[name]
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name)}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -67,3 +84,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     _LIBS[name] = lib
     return lib
+
+
+def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """:func:`load` for several sources, their ``nvcc`` runs in parallel."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,5 +1,5 @@
-"""Raytraced camera-ray generation: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Camera-ray generation kernels: the CUDA kernels' wrappers and their plain
+PyTorch versions, for the raytraced model and for the thin-lens model.
 
 Port of ``zoic_tpu/ops/trace_kernel.py:raytraced_fused`` for the main
 path's flags: exit-pupil LUT shaping, the pupil pre-check with the
@@ -17,13 +17,22 @@ gives the same result as the TPU's compacted tiles.
 and runs :func:`raytraced_plain` for CPU tensors.  :func:`raytraced_plain`
 runs the same per-ray walk over the whole batch as masked tensor ops, one
 step per draw index, in the kernel's order of operations.
+
+Port of ``zoic_tpu/ops/trace_kernel.py:thinlens_fused``: the pinhole
+direction, the depth-of-field refocus and the empirical-vignetting retry
+rounds.  Round 0 takes the caller's draws; round ``rnd`` (1-based) draws a
+pending ray's aperture point from the counter hash keyed by (ray id, seed,
+``rnd``), or, with image bokeh, reads it from the presampled retry planes
+through :func:`retry_plane_index`, the TPU kernel's tile-position map
+written out.  :func:`thinlens_fused` launches ``csrc/thinlens.cu`` for
+CUDA tensors and runs :func:`thinlens_plain` for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,11 +44,18 @@ Tensor = torch.Tensor
 
 # launches of the CUDA kernel by raytraced_fused (plain CPU runs not counted)
 launches = 0
+# launches of the CUDA kernel by thinlens_fused (plain CPU runs not counted)
+thinlens_launches = 0
 
 # shared-memory table capacities of csrc/raytraced.cu
 MAX_ELEMS, MAX_KEYS, MAX_COEF = 64, 128, 32
 
 SALT_U1, SALT_U2 = 0x11111111, 0x22222222
+
+# the TPU thin-lens kernel's lane width and default tile rows: they decide
+# which retry-plane cell a ray reads in each round (retry_plane_index)
+LANES = 128
+DEF_TILE_ROWS = 64
 
 
 def _f32(x: float) -> float:
@@ -519,3 +535,222 @@ def raytraced_fused(
         raise RuntimeError(f"raytraced kernel launch failed: CUDA error {err}")
     launches += 1
     return origin, direction, tries, tir
+
+
+# -------------------------------------------------------------- thin lens
+
+
+def retry_plane_layout(b: int, bp: int) -> Tuple[int, int, bool]:
+    """``(tile_rows, plane_tiles, reuse)`` of the TPU thin-lens kernel for
+    ``b`` rays and retry planes of ``bp`` draws.
+
+    ``tile_rows`` starts at ``DEF_TILE_ROWS`` and is halved while the batch
+    fits in half a tile (``thinlens_fused``); planes shorter than a tile
+    wrap to ``plane_tiles`` whole tiles (``_prep_retry_planes``);
+    ``reuse`` says whether grid tiles share plane blocks, which adds the
+    per-reuse rotation."""
+    rows = -(-b // LANES)
+    tile_rows = DEF_TILE_ROWS
+    while tile_rows >= 32 and rows <= tile_rows // 2:
+        tile_rows //= 2
+    grid = -(-rows // tile_rows)
+    plane_tiles = -(-bp // (tile_rows * LANES))
+    return tile_rows, plane_tiles, plane_tiles < grid
+
+
+def retry_plane_index(ids: Tensor, rnd: int, n_planes: int, bp: int,
+                      tile_rows: int, plane_tiles: int,
+                      reuse: bool) -> Tuple[int, Tensor]:
+    """``(plane, position)`` of round ``rnd``'s presampled retry draw for
+    the rays at flat indices ``ids``.
+
+    The TPU kernel lays ray ``i`` at row ``R = i // 128``, lane
+    ``l = i % 128`` of tile ``t = R // tile_rows``, row ``r`` in it; tile
+    ``t`` reads plane block ``t % plane_tiles``.  Round ``rnd`` reads plane
+    ``(rnd-1) % P`` rolled down by ``shift`` rows and right by ``lsh``
+    lanes (a roll moves element ``j`` to ``j + s``), where the reuse cycle
+    ``(rnd-1) // P`` and, when tiles share blocks, the reuse index
+    ``t // plane_tiles`` set the shifts."""
+    rr, lane = ids // LANES, ids % LANES
+    t, r = rr // tile_rows, rr % tile_rows
+    pidx, cyc = (rnd - 1) % n_planes, (rnd - 1) // n_planes
+    t_reuse = t // plane_tiles if reuse else torch.zeros_like(t)
+    shift = (3 * cyc + 5 * t_reuse) % tile_rows
+    lsh = (21 * t_reuse) % LANES
+    row = (t % plane_tiles) * tile_rows + (r - shift) % tile_rows
+    return pidx, (row * LANES + (lane - lsh) % LANES) % bp
+
+
+def _retry_planes(retry_u1, retry_u2, dev) -> Tuple[Tensor, Tensor]:
+    """The presampled retry planes ``[P, Bp]``; zeros ``[1, 128]`` when the
+    caller gave none, as ``thinlens_fused`` does."""
+    if retry_u1 is None:
+        z = torch.zeros((1, LANES), dtype=torch.float32, device=dev)
+        return z, z
+    if retry_u1.dim() != 2 or retry_u1.shape != retry_u2.shape:
+        raise ValueError(
+            f"retry planes must be [P, Bp] of one shape, got "
+            f"{tuple(retry_u1.shape)} and {tuple(retry_u2.shape)}"
+        )
+    return retry_u1, retry_u2
+
+
+def _f32_scalar(x) -> float:
+    return float(np.float32(float(x)))
+
+
+def _lens_attempt(lx, ly, fx, fy, fz, ap, ovd, thr, has_ov):
+    """One aperture attempt: scale the offset to the aperture, aim through
+    the focal-plane point, normalise, and the empirical-vignetting test
+    (``_thinlens_kernel.attempt``; the reference's ABS on the sqrt is the
+    identity and is dropped)."""
+    lx = lx * ap
+    ly = ly * ap
+    ddx = fx - lx
+    ddy = fy - ly
+    inv2 = torch.rsqrt(ddx * ddx + ddy * ddy + fz * fz)
+    dx, dy, dz = ddx * inv2, ddy * inv2, fz * inv2
+    ok = None
+    if has_ov:
+        vx = dx * ovd - lx
+        vy = dy * ovd - ly
+        ok = _fast_sqrt(vx * vx + vy * vy) < thr
+    return [lx, ly, dx, dy, dz], ok
+
+
+def thinlens_plain(
+    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
+    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int, *,
+    use_dof: bool, has_ov: bool, max_tries: int, presampled: bool = False,
+    retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of the thin-lens kernel on any device:
+    returns ``(origin[B,3], dir[B,3], tries[B] i32)``."""
+    seed = _check_seed(seed)
+    b = sx.shape[0]
+    dev = sx.device
+    tan_fov, ap, focal, ovd, ovr = (_f32_scalar(v) for v in (
+        tan_fov, aperture_radius, focal_distance, ov_distance, ov_radius))
+    thr = float(np.float32(ap) * np.float32(ovr))
+
+    px = sx * tan_fov
+    py = sy * tan_fov
+    inv = torch.rsqrt(px * px + py * py + 1.0)
+    pdx, pdy, pdz = px * inv, py * inv, inv
+    zeros = torch.zeros_like(sx)
+    tries = torch.zeros(b, dtype=torch.int32, device=dev)
+    if not use_dof:
+        return (torch.stack([zeros, zeros, zeros], -1),
+                torch.stack([pdx, pdy, -pdz], -1), tries)
+
+    # true division by the ray's z (a Python scalar numerator would make
+    # PyTorch multiply by the reciprocal)
+    focal_t = torch.tensor(focal, dtype=torch.float32, device=dev)
+    t = torch.abs(focal_t / pdz)
+    fx, fy, fz = pdx * t, pdy * t, pdz * t
+    lx, ly = (u1, u2) if presampled else concentric(u1, u2)
+    pay, ok = _lens_attempt(lx, ly, fx, fy, fz, ap, ovd, thr, has_ov)
+
+    if has_ov:
+        ids = torch.arange(b, dtype=torch.int64, device=dev)
+        if presampled:
+            bu1, bu2 = _retry_planes(retry_u1, retry_u2, dev)
+            n_planes, bp = bu1.shape
+            layout = retry_plane_layout(b, bp)
+        pending = ~ok
+        for rnd in range(1, max_tries + 2):
+            if not bool(pending.any()):
+                break
+            if presampled:
+                pidx, pos = retry_plane_index(ids, rnd, n_planes, bp, *layout)
+                lx, ly = bu1[pidx][pos], bu2[pidx][pos]
+            else:
+                ctr = torch.full_like(ids, rnd)
+                lx, ly = concentric(hash_uniform(ids, seed, ctr, SALT_U1),
+                                    hash_uniform(ids, seed, ctr, SALT_U2))
+            new, nok = _lens_attempt(lx, ly, fx, fy, fz, ap, ovd, thr, True)
+            pay = [torch.where(pending, n, o) for n, o in zip(new, pay)]
+            tries = torch.where(pending, rnd, tries).to(torch.int32)
+            pending = pending & ~nok
+
+    lx, ly, dx, dy, dz = pay
+    return (torch.stack([lx, ly, zeros], -1), torch.stack([dx, dy, -dz], -1),
+            tries)
+
+
+def _thinlens_lib():
+    lib = _build.load("thinlens")
+    fn = lib.zoic_thinlens_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def thinlens_fused(
+    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
+    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int, *,
+    use_dof: bool, has_ov: bool, max_tries: int, presampled: bool = False,
+    retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Fused thin-lens camera-ray generation over flat ``[B]`` inputs.
+
+    Returns ``(origin[B,3], dir[B,3], tries[B] i32)``.  With
+    ``presampled`` the ``(u1, u2)`` inputs are [-1, 1] aperture offsets
+    (image bokeh) and, with vignetting, retry draws come from the
+    ``[P, Bp]`` planes ``retry_u1/retry_u2``.  CUDA tensors launch
+    ``csrc/thinlens.cu``; CPU tensors run :func:`thinlens_plain`."""
+    global thinlens_launches
+    args = (sx, sy, u1, u2, tan_fov, aperture_radius, focal_distance,
+            ov_distance, ov_radius, seed)
+    flags = dict(use_dof=use_dof, has_ov=has_ov, max_tries=max_tries,
+                 presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2)
+    if sx.device.type == "cpu":
+        return thinlens_plain(*args, **flags)
+    if sx.device.type != "cuda":
+        raise ValueError(f"unsupported device {sx.device}")
+    seed = _check_seed(seed)
+    b = sx.shape[0]
+    dev = sx.device
+    for name, t in (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)):
+        _check_input(name, t, b, dev)
+    scal = torch.stack([
+        torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())
+        for v in (tan_fov, aperture_radius, focal_distance, ov_distance,
+                  ov_radius)
+    ])
+    bu1 = bu2 = None
+    n_planes = bp = tile_rows = plane_tiles = reuse = 0
+    if presampled and has_ov:
+        bu1, bu2 = _retry_planes(retry_u1, retry_u2, dev)
+        for name, t in (("retry_u1", bu1), ("retry_u2", bu2)):
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 on {dev}, got "
+                                 f"{t.dtype} on {t.device}")
+        bu1, bu2 = bu1.contiguous(), bu2.contiguous()
+        n_planes, bp = bu1.shape
+        tile_rows, plane_tiles, reuse = retry_plane_layout(b, bp)
+    ins = [t.contiguous() for t in (sx, sy, u1, u2)]
+    origin = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    direction = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    tries = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return origin, direction, tries
+    fn = _thinlens_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in ins),
+            bu1.data_ptr() if bu1 is not None else None,
+            bu2.data_ptr() if bu2 is not None else None,
+            scal.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            tries.data_ptr(),
+            b, int(use_dof), int(has_ov), int(presampled), max_tries + 1,
+            seed, n_planes, bp, tile_rows, plane_tiles, int(reuse), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"thinlens kernel launch failed: CUDA error {err}")
+    thinlens_launches += 1
+    return origin, direction, tries

@@ -2,8 +2,7 @@
 
 The counterparts of ``zoic_tpu/system.py``: the same containers and field
 names, with every array a ``torch.Tensor`` on one device and the static
-(shape-deciding) fields kept as Python values.  ``BokehImage`` is not
-ported yet, so a state with a bokeh image is refused.
+(shape-deciding) fields kept as Python values.
 
 The state bridge (:func:`camera_state_from_numpy`) builds a
 :class:`CameraState` from named numpy arrays plus the static fields, which
@@ -101,6 +100,23 @@ class LensSystem(_ToDevice):
 
 
 @dataclasses.dataclass(frozen=True)
+class BokehImage(_ToDevice):
+    """Image-bokeh sampler tables (``zoic_tpu.system.BokehImage``), built on
+    the host by :func:`zoic_tpu_torch.bokeh.build`.  ``dx_col`` and
+    ``dy_srow`` hold the final [-1, 1] offsets computed with host true f32
+    division, so sampling only selects values and never divides."""
+
+    cdf_row: Tensor      # f32[h]    row CDF over sorted row sums
+    row_indices: Tensor  # i32[h]    descending-sum row order
+    cdf_col: Tensor      # f32[h, w] per-row CDF over sorted columns
+    col_indices: Tensor  # i32[h, w] per-row descending column order (global)
+    dx_col: Tensor       # f32[h, w] final dx per (row, sorted column)
+    dy_srow: Tensor      # f32[h]    final dy per sorted row index
+    width: int = 0
+    height: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class CameraState(_ToDevice):
     """Everything ``create_rays`` needs, on one device."""
 
@@ -114,7 +130,7 @@ class CameraState(_ToDevice):
     ov_radius: Tensor
     exposure_control: Tensor
     lens: Optional[LensSystem]
-    bokeh: None = None  # BokehImage is not ported yet
+    bokeh: Optional[BokehImage] = None
 
     @property
     def device(self) -> torch.device:
@@ -150,9 +166,13 @@ _LENS_FIELDS = [
     f.name for f in dataclasses.fields(LensSystem)
     if f.name not in ("lut", "profile") and f.type == "Tensor"
 ]
+_BOKEH_FIELDS = [
+    f.name for f in dataclasses.fields(BokehImage) if f.type == "Tensor"
+]
 _STATE_FIELDS = [
     f.name for f in dataclasses.fields(CameraState) if f.type == "Tensor"
 ]
+
 
 def leaf_names(static: dict) -> List[str]:
     """Array names in ``jax.tree_util`` flatten order of the JAX package's
@@ -165,10 +185,7 @@ def leaf_names(static: dict) -> List[str]:
         if static["has_profile"]:
             names += [f"lens.profile.{n}" for n in _PROFILE_FIELDS]
     if static.get("has_bokeh"):
-        raise NotImplementedError(
-            "image-bokeh state: BokehImage is not ported yet "
-            "(ROADMAP Queue 1 item 3, image bokeh)"
-        )
+        names += [f"bokeh.{n}" for n in _BOKEH_FIELDS]
     return names
 
 
@@ -176,9 +193,10 @@ def camera_state_from_numpy(
     arrays: Dict[str, np.ndarray], static: dict, device
 ) -> CameraState:
     """Build a :class:`CameraState` on ``device`` from named arrays
-    (``"fov"``, ``"lens.curvature"``, ``"lens.lut.keys"``, ...; see
-    :func:`leaf_names`) and the static fields of the JAX package's state
-    file (``has_lens``, ``aperture_element``, ``elem_flags``, ...)."""
+    (``"fov"``, ``"lens.curvature"``, ``"lens.lut.keys"``,
+    ``"bokeh.cdf_row"``, ...; see :func:`leaf_names`) and the static fields
+    of the JAX package's state file (``has_lens``, ``aperture_element``,
+    ``elem_flags``, ``bokeh_wh``, ...)."""
     device = torch.device(device)
     expected = leaf_names(static)
     if sorted(arrays) != sorted(expected):
@@ -214,4 +232,10 @@ def camera_state_from_numpy(
             profile_domain=str(static["profile_domain"]),
             profile_poly=bool(static["profile_poly"]),
         )
-    return CameraState(*[t(n) for n in _STATE_FIELDS], lens=lens)
+    bokeh = None
+    if static.get("has_bokeh"):
+        width, height = static["bokeh_wh"]
+        bokeh = BokehImage(*[t(f"bokeh.{n}") for n in _BOKEH_FIELDS],
+                           width=int(width), height=int(height))
+    return CameraState(*[t(n) for n in _STATE_FIELDS], lens=lens,
+                       bokeh=bokeh)
