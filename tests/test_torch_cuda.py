@@ -8,6 +8,8 @@ JAX; there ``tests/conftest.py`` (which imports jax) is left out:
 Without a card each test skips: the kernels have no CPU mode.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -91,6 +93,80 @@ def test_create_rays_on_cuda(cuda_state):
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert bool(torch.isfinite(rays.origin).all())
     assert rays.weight.is_cuda and rays.weight.shape == (65_536,)
+
+
+@pytest.mark.cuda
+def test_raytraced_bokeh_create_rays_on_cuda(cuda_dev):
+    """The image-bokeh camera end to end: one bokeh launch for the
+    attempt-0 offsets, one for the retry planes, one raytraced launch."""
+    cam = zpt.data.CAMERAS["raytraced_bokeh_image"]
+    cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
+                           lens_data_path=cam.lens, bokeh_path="disk64.npy",
+                           **cam.config_kwargs())
+    st = zpt.load_state(zpt.data.state_path(cam.file), device=cuda_dev)
+    sx, sy, lx, ly = _inputs(65_536, seed=4)
+    t0, b0 = tk.launches, bk.launches
+    rays, stats = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=77)
+    torch.cuda.synchronize()
+    assert tk.launches == t0 + 1 and bk.launches == b0 + 2
+    assert int(stats.success) + int(stats.vignetted) == 65_536
+    assert int(stats.tries_total) > 0
+    assert bool(torch.isfinite(rays.dir).all()) and rays.dir.is_cuda
+
+
+# raytraced variants: (shipped camera, raytraced_fused flags, lens changes)
+RT_VARIANTS = {
+    "harmonic-chain": ("raytraced_fisheye", {}, {}),
+    "harmonic-poly": ("raytraced_fisheye", {}, dict(profile_poly=True)),
+    "circles-chain": ("raytraced_petzval_f1.25_focus30", {}, {}),
+    "no-iris": ("raytraced_telephoto_f5.0_focus30", {}, {}),
+    "naive": ("raytraced_naive", dict(use_lut=False), {}),
+    "naive-no-precheck": ("raytraced_naive",
+                          dict(use_lut=False, use_profile=False), {}),
+    "no-precheck": ("headline", dict(use_profile=False), {}),
+    "dynamic-flags": ("headline", {}, dict(elem_flags=())),
+    "bokeh-precheck": ("raytraced_bokeh_image", dict(presampled=True), {}),
+    "bokeh-no-precheck": ("raytraced_bokeh_image",
+                          dict(presampled=True, use_profile=False), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16 * 128 + 77, 300_000])
+@pytest.mark.parametrize("name", list(RT_VARIANTS))
+def test_raytraced_variant_matches_plain(cuda_dev, name, n):
+    """Every variant of the raytraced kernel against its plain version:
+    tries/tir equal but for at most 1 ray in 10,000, payloads of agreeing
+    live rays within 1e-5.  Presampled variants read retry planes of an
+    eighth of the batch, so tiles share plane blocks at 300,000 rays."""
+    camera, flags, lens_kw = RT_VARIANTS[name]
+    st = zpt.load_state(zpt.data.state_path(camera), device=cuda_dev)
+    lens = dataclasses.replace(st.lens, **lens_kw)
+    rng = np.random.default_rng(n)
+    lo = -1.0 if flags.get("presampled") else 0.0
+    cols = [rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+            rng.uniform(lo, 1, n), rng.uniform(lo, 1, n)]
+    args = [torch.from_numpy(c.astype(np.float32)).to(cuda_dev)
+            for c in cols]
+    kw = dict(flags, max_tries=25)
+    if flags.get("presampled"):
+        bp = max(1 << 12, n // 8)
+        kw.update({k: torch.from_numpy(rng.uniform(-1, 1, (4, bp)).astype(
+            np.float32)).to(cuda_dev) for k in ("retry_u1", "retry_u2")})
+    before = tk.launches
+    ko, kd, kt, ktir = tk.raytraced_fused(lens, *args, st.sensor_width,
+                                          SEED, **kw)
+    assert tk.launches == before + 1
+    po, pd, pt, ptir = tk.raytraced_plain(lens, *args, st.sensor_width,
+                                          SEED, **kw)
+    torch.cuda.synchronize()
+    limit = max(1, n // 10_000)
+    assert int((kt != pt).sum()) <= limit
+    assert int((ktir != ptir).sum()) <= limit
+    same = (kt == pt) & (ktir == ptir) & (kt <= 25)
+    assert int(same.sum()) > 0
+    assert float((ko - po)[same].abs().max()) <= 1e-5
+    assert float((kd - pd)[same].abs().max()) <= 1e-5
 
 
 THIN_BRANCHES = {

@@ -177,14 +177,41 @@ def test_budget_edges_match_interpret_kernel(states, case):
 
 
 def test_wrapper_refuses_unported_variants(states):
-    _, st = states
+    """Named for the refusals of the first slice: naive shaping, which the
+    wrapper refused then, now runs (on the headline state, under the
+    pre-check fitted for LUT candidates) and matches the interpret-mode
+    kernel per ray.  What stays refused: a seed outside [0, 2**22), the
+    LUT on a state compiled without it, and a presampled pre-check under a
+    disk-fitted bound."""
+    js, st = states
+    sx, sy, u1, u2 = _inputs(512, seed=13)
+    jo, jd, jt, jtir = (np.asarray(a) for a in jtk.raytraced_fused(
+        js.lens, *(jnp.asarray(a) for a in (sx, sy, u1, u2)),
+        js.sensor_width, jnp.int32(3), max_tries=4, use_lut=False,
+        use_profile=True, interpret=True, compact=False,
+    ))
+    to, td, tt, ttir = (a.numpy() for a in tk.raytraced_fused(
+        st.lens, *(torch.from_numpy(a) for a in (sx, sy, u1, u2)),
+        st.sensor_width, 3, max_tries=4, use_lut=False,
+    ))
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_array_equal(ttir, jtir)
+    live = jt <= 4
+    assert (jt > 0).any() and live.any()
+    np.testing.assert_allclose(to[live], jo[live], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(td[live], jd[live], rtol=0, atol=1e-5)
+
     z = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.raytraced_fused(st.lens, z, z, z, z, st.sensor_width, 0,
-                           max_tries=2, use_lut=False)
     with pytest.raises(ValueError, match="seed"):
         tk.raytraced_fused(st.lens, z, z, z, z, st.sensor_width, 1 << 22,
                            max_tries=2)
+    naive = zpt.load_state(zpt.data.state_path("raytraced_naive"))
+    with pytest.raises(ValueError, match="LUT"):
+        tk.raytraced_fused(naive.lens, z, z, z, z, naive.sensor_width, 0,
+                           max_tries=2)
+    with pytest.raises(ValueError, match="square-domain"):
+        tk.raytraced_fused(st.lens, z, z, z, z, st.sensor_width, 0,
+                           max_tries=2, presampled=True)
 
 
 def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):

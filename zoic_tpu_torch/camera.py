@@ -3,10 +3,10 @@
 Counterparts of ``zoic_tpu.camera.compile_camera`` and
 ``zoic_tpu.camera.create_rays``.  The THINLENS model runs end to end in the
 port: :func:`compile_camera` computes its three scalars and builds the
-bokeh image on the host.  The RAYTRACED model runs on a state compiled by
-the JAX package (:func:`zoic_tpu_torch.load_state`); its lens-compile
-pipeline is not ported yet.  Configurations outside the ported slices raise
-``NotImplementedError`` naming the ROADMAP item that ports them.  The
+bokeh image on the host.  The RAYTRACED model runs, in every variant, on a
+state compiled by the JAX package (:func:`zoic_tpu_torch.load_state`); its
+lens-compile pipeline is not ported yet, so :func:`compile_camera` raises
+``NotImplementedError`` for it, naming the ROADMAP item that ports it.  The
 ``Camera`` wrapper is not ported yet.
 """
 
@@ -71,26 +71,6 @@ def compile_camera(config: CameraConfig, device="cpu") -> CameraState:
     return state.to(device)
 
 
-def _check_slice(config: CameraConfig) -> None:
-    """Config-level gates of the RAYTRACED model; lens-state gates live
-    with the kernel (``ops.trace_kernel.check_supported``)."""
-    if config.use_image:
-        raise NotImplementedError(
-            "use_image with RAYTRACED: ROADMAP Queue 1 item 3 (raytraced + "
-            "image bokeh)"
-        )
-    if not config.kolb_sampling_lut:
-        raise NotImplementedError(
-            "kolb_sampling_lut=False (naive first-element shaping): "
-            "ROADMAP Queue 1 item 1 (raytraced variants)"
-        )
-    if not config.pupil_precheck:
-        raise NotImplementedError(
-            "pupil_precheck=False: ROADMAP Queue 1 item 1 (raytraced "
-            "variants)"
-        )
-
-
 def create_rays(
     state: CameraState,
     config: CameraConfig,
@@ -116,7 +96,6 @@ def create_rays(
     if config.lens_model is LensModel.THINLENS:
         return thinlens.create_rays(state, config, sx, sy, lensx, lensy,
                                     seed=seed, generator=generator)
-    _check_slice(config)
     return raytraced.create_rays(
         state, config, sx, sy, lensx, lensy, seed=seed, generator=generator
     )

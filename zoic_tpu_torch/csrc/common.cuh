@@ -3,7 +3,8 @@
 //
 // Each mirrors, operation for operation, its PyTorch counterpart in
 // zoic_tpu_torch/ops/trace_kernel.py (_sin_poly, fast_sin, fast_cos,
-// concentric, hash_uniform, _fast_sqrt), which mirror the JAX package's
+// concentric, hash_uniform, _fast_sqrt, _plane_index), which mirror the
+// JAX package's
 // zoic_tpu/ops/trace_kernel.py.  The kernels are built with --fmad=false, so
 // keep the order of operations identical when editing either side: the
 // kernels are held bit-equal to their plain PyTorch versions on the card.
@@ -75,6 +76,32 @@ __device__ __forceinline__ float hash_uniform(uint32_t id, uint32_t seed,
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return (float)(int32_t)(h >> 8) * 5.9604644775390625e-8f;  // 2^-24
+}
+
+constexpr int kLanes = 128;
+
+// Flat index into [P, bp] retry planes of presampled draw idx for ray i:
+// the TPU kernel lays ray i at row R = i / 128, lane l = i % 128 of tile
+// t = R / tile_rows (row r in it); tile t reads plane block t % plane_tiles,
+// of plane idx % P, rolled down by `shift` rows and right by `lsh` lanes
+// for reuse cycle idx / P and, when tiles share blocks (reuse), reuse index
+// t / plane_tiles; lane_step lanes more per eight cycles (7 raytraced, 0
+// thin lens).  tile_rows is a power of two, so the masks are the moduli.
+// Planes shorter than their tiles wrap.  Mirrors trace_kernel._plane_index.
+__device__ __forceinline__ int64_t plane_cell(int i, int idx, int n_planes,
+                                              int bp, int tile_rows,
+                                              int plane_tiles, bool reuse,
+                                              int lane_step) {
+  const int rr = i / kLanes, l = i % kLanes;
+  const int t = rr / tile_rows, r = rr % tile_rows;
+  const int pidx = idx % n_planes, cyc = idx / n_planes;
+  const int t_reuse = reuse ? t / plane_tiles : 0;
+  const int shift = (3 * cyc + 5 * t_reuse) & (tile_rows - 1);
+  const int lsh = (lane_step * (cyc / 8) + 21 * t_reuse) & (kLanes - 1);
+  const int64_t row = (int64_t)(t % plane_tiles) * tile_rows +
+                      ((r - shift) & (tile_rows - 1));
+  const int64_t pos = (row * kLanes + ((l - lsh) & (kLanes - 1))) % bp;
+  return (int64_t)pidx * bp + pos;
 }
 
 }  // namespace zoic

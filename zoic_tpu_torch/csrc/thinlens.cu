@@ -14,8 +14,8 @@
 //   ray whose virtual-aperture test fails redraws in rounds 1..max_total:
 //   from the counter hash keyed by (i, seed, round), or with image bokeh from
 //   the presampled retry planes at the cell the TPU kernel's tile layout
-//   gives ray i in that round (plane_cell below).  tries is the last round
-//   the ray took.  Output: origin = (lx, ly, 0), dir = (dx, dy, -dz).
+//   gives ray i in that round (plane_cell, common.cuh).  tries is the last
+//   round the ray took.  Output: origin = (lx, ly, 0), dir = (dx, dy, -dz).
 // The TPU kernel's straggler compaction (fold eras, bitonic unsort) is
 // scheduling: each thread walks its own rounds, which gives the same per-ray
 // result because every draw is keyed by the ray's id and round.
@@ -38,7 +38,6 @@ namespace {
 using namespace zoic;
 
 constexpr int kBlock = 256;
-constexpr int kLanes = 128;
 
 struct Attempt {
   float lx, ly, dx, dy, dz;
@@ -66,27 +65,6 @@ __device__ __forceinline__ Attempt attempt(float lx, float ly, float fx,
     a.ok = fast_sqrt(vx * vx + vy * vy) < thr;
   }
   return a;
-}
-
-// Flat index into a [P, bp] retry plane of round rnd's draw for ray i:
-// the TPU kernel lays ray i at row R = i / 128, lane l = i % 128 of tile
-// t = R / tile_rows (row r in it); tile t reads plane block t % plane_tiles,
-// of plane (rnd-1) % P, rolled down by `shift` rows and right by `lsh` lanes
-// (tile_rows is a power of two, so the masks are the moduli).  Planes
-// shorter than their tiles wrap.  Mirrors trace_kernel.retry_plane_index.
-__device__ __forceinline__ int64_t plane_cell(int i, int rnd, int n_planes,
-                                              int bp, int tile_rows,
-                                              int plane_tiles, bool reuse) {
-  const int rr = i / kLanes, l = i % kLanes;
-  const int t = rr / tile_rows, r = rr % tile_rows;
-  const int pidx = (rnd - 1) % n_planes, cyc = (rnd - 1) / n_planes;
-  const int t_reuse = reuse ? t / plane_tiles : 0;
-  const int shift = (3 * cyc + 5 * t_reuse) & (tile_rows - 1);
-  const int lsh = (21 * t_reuse) & (kLanes - 1);
-  const int64_t row = (int64_t)(t % plane_tiles) * tile_rows +
-                      ((r - shift) & (tile_rows - 1));
-  const int64_t pos = (row * kLanes + ((l - lsh) & (kLanes - 1))) % bp;
-  return (int64_t)pidx * bp + pos;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -135,8 +113,8 @@ thinlens_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
   if (has_ov) {
     for (int rnd = 1; rnd <= max_total && !a.ok; ++rnd) {
       if (presampled) {
-        const int64_t k =
-            plane_cell(i, rnd, n_planes, bp, tile_rows, plane_tiles, reuse);
+        const int64_t k = plane_cell(i, rnd - 1, n_planes, bp, tile_rows,
+                                     plane_tiles, reuse, 0);
         lx = bu1[k];
         ly = bu2[k];
       } else {

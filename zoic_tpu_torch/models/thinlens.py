@@ -23,10 +23,6 @@ from . import common
 
 Tensor = torch.Tensor
 
-# presampled retry-draw planes (zoic_tpu.ops.trace_kernel.BOKEH_PLANES)
-BOKEH_PLANES = 4
-
-
 def create_rays(
     state: CameraState,
     config: CameraConfig,
@@ -62,7 +58,7 @@ def create_rays(
 def retry_planes(state, config, b, generator):
     """``n_planes`` planes of ``bp`` bokeh offsets for the retry rounds:
     quarter-batch planes that grid tiles share (``_create_rays_pallas``)."""
-    n_planes = min(BOKEH_PLANES, config.max_tries + 1)
+    n_planes = min(trace_kernel.BOKEH_PLANES, config.max_tries + 1)
     bp = min(b, max(1 << 16, b // 4))
     u = torch.rand((2, n_planes * bp), generator=generator,
                    device=generator.device, dtype=torch.float32)

@@ -1,38 +1,45 @@
 """Camera-ray generation kernels: the CUDA kernels' wrappers and their plain
 PyTorch versions, for the raytraced model and for the thin-lens model.
 
-Port of ``zoic_tpu/ops/trace_kernel.py:raytraced_fused`` for the main
-path's flags: exit-pupil LUT shaping, the pupil pre-check with the
-2-circle bound evaluated from its polynomial fit, the static per-element
-flags and the iris refract-identity skip.  Each ray walks its own draws in
-order: draw 0 is the caller's ``(u1, u2)`` and consumes no try; retry ``c``
-draws from a stateless counter hash keyed by ``(ray id, seed, c)``.  A ray
-whose per-ray bound rejects the whole aperture disk takes its whole budget
-at once; a draw outside the bound consumes a try without a trace.  Because
-the draws are keyed by the ray's own try count, a ray's result does not
-depend on how retries are scheduled, which is why a GPU thread per ray
-gives the same result as the TPU's compacted tiles.
+Port of ``zoic_tpu/ops/trace_kernel.py:raytraced_fused``, every variant
+``zoic_tpu.create_rays`` reaches: exit-pupil LUT or naive first-element
+shaping; the pupil pre-check or none, its bound the 2-circle cover or the
+harmonic cos series, evaluated from its polynomial fit or lerped per key
+(the select chain); static or table-read element flags; the iris
+refract-identity skip; and the presampled (image bokeh) mode.  Each ray
+walks its own draws in rounds: round 0 takes the caller's draw, which
+consumes no try, and with the pre-check scans up to ``PRECHECK_DRAWS``
+more; each retry round scans ``PRECHECK_DRAWS`` draws (one without the
+pre-check) until one passes the bound and traces it.  Every draw after the
+caller's consumes a try, and a ray whose bound rejects the whole domain
+takes its whole budget at once.  Retry draws come from a stateless counter
+hash keyed by ``(ray id, seed, try)``, or, presampled, from the retry
+planes at the cell :func:`raytraced_plane_index` gives the ray, the draw
+index and the batch: the TPU kernel's tile-position map of its whole-tile
+loop (``compact=False``), written out.  Either way a ray's draws are a
+function of the ray alone, which is why a GPU thread per ray gives the
+TPU's per-ray result.
 
 :func:`raytraced_fused` launches ``csrc/raytraced.cu`` for CUDA tensors
 and runs :func:`raytraced_plain` for CPU tensors.  :func:`raytraced_plain`
-runs the same per-ray walk over the whole batch as masked tensor ops, one
-step per draw index, in the kernel's order of operations.
+runs the same rounds over the pending rays as tensor ops, in the kernel's
+order of operations.
 
 Port of ``zoic_tpu/ops/trace_kernel.py:thinlens_fused``: the pinhole
 direction, the depth-of-field refocus and the empirical-vignetting retry
 rounds.  Round 0 takes the caller's draws; round ``rnd`` (1-based) draws a
 pending ray's aperture point from the counter hash keyed by (ray id, seed,
 ``rnd``), or, with image bokeh, reads it from the presampled retry planes
-through :func:`retry_plane_index`, the TPU kernel's tile-position map
-written out.  :func:`thinlens_fused` launches ``csrc/thinlens.cu`` for
-CUDA tensors and runs :func:`thinlens_plain` for CPU tensors.
+through :func:`retry_plane_index`.  :func:`thinlens_fused` launches
+``csrc/thinlens.cu`` for CUDA tensors and runs :func:`thinlens_plain` for
+CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,10 +59,17 @@ MAX_ELEMS, MAX_KEYS, MAX_COEF = 64, 128, 32
 
 SALT_U1, SALT_U2 = 0x11111111, 0x22222222
 
-# the TPU thin-lens kernel's lane width and default tile rows: they decide
-# which retry-plane cell a ray reads in each round (retry_plane_index)
+# candidate draws per pre-checked round (zoic_tpu PRECHECK_DRAWS; round 0
+# scans as many after the caller's draw)
+PRECHECK_DRAWS = 4
+# presampled retry-draw planes per generation (zoic_tpu BOKEH_PLANES)
+BOKEH_PLANES = 4
+
+# the TPU kernels' lane width and default tile rows (thin lens, raytraced):
+# they decide which retry-plane cell a ray reads (_plane_index)
 LANES = 128
 DEF_TILE_ROWS = 64
+DEF_RT_TILE_ROWS = 128
 
 
 def _f32(x: float) -> float:
@@ -74,6 +88,7 @@ SIN_P = _f32(0.225)
 SAMPLING_ERROR_CORRECTION = _f32(1.05)  # zoic_tpu.pupil, zoic.cpp:1463
 TINY = _f32(1e-35)
 BIG = _f32(1e9)
+RHO2_MIN = _f32(1e-18)  # harmonic bound's rsqrt guard (_bound_pass)
 TWO_M24 = 2.0 ** -24
 
 # ------------------------------------------------------------- host tables
@@ -112,29 +127,50 @@ def pack_elements(lens: LensSystem) -> Tensor:
     )
 
 
-def shaping_table(lens: LensSystem) -> Tuple[Tensor, Tensor]:
+def shaping_table(lens: LensSystem, use_lut: bool = True,
+                  use_profile: bool = True) -> Tuple[Tensor, Tensor]:
     """f32[n_keys, 6] ``[max_scale*1.05, centroid_x, c0, c1, c2, c4]`` per
-    film-radius key and the uniform key spacing (``_shaping_table`` with
-    the LUT and the profile on).  The 1.05 margin is folded into the
-    table in float32 before the lerp."""
-    lut, prof = lens.lut, lens.profile
-    ms = lut.max_scale * SAMPLING_ERROR_CORRECTION
-    table = torch.stack(
-        [ms, lut.centroid_x, prof.c0, prof.c1, prof.c2, prof.c4], dim=1
-    )
-    spacing = lut.keys[1] - lut.keys[0]
-    return table, spacing
+    film-radius key and the uniform key spacing (``_shaping_table``).
+    Without the LUT the keys are the profile's and the two LUT columns 0;
+    with neither, one zero row and spacing 1.  The 1.05 margin is folded
+    into the table in float32 before the lerp."""
+    dev = lens.ior.device
+    if use_lut:
+        keys = lens.lut.keys
+        ms = lens.lut.max_scale * SAMPLING_ERROR_CORRECTION
+        ce = lens.lut.centroid_x
+    elif use_profile:
+        keys = lens.profile.keys
+        ms = ce = torch.zeros_like(keys)
+    else:
+        return (torch.zeros((1, 6), dtype=torch.float32, device=dev),
+                torch.tensor(1.0, dtype=torch.float32, device=dev))
+    if use_profile:
+        prof = lens.profile
+        cols = [prof.c0, prof.c1, prof.c2, prof.c4]
+    else:
+        cols = [torch.zeros_like(keys)] * 4
+    return torch.stack([ms, ce, *cols], dim=1), keys[1] - keys[0]
 
 
 def kernel_scalars(lens: LensSystem, sensor_width: Tensor, spacing: Tensor,
-                   seed: int, batch: int) -> Tensor:
+                   seed: int, batch: int, use_profile: bool,
+                   use_poly: bool) -> Tensor:
     """f32[8] ``[origin_shift, -thickness[0], seed, aperture[0], spacing,
-    batch, sensor_width/2, 1/poly_scale]``, the scalars
-    ``raytraced_fused`` packs."""
+    batch, sensor_width/2, inv_dmax]``, the scalars ``raytraced_fused``
+    packs.  ``inv_dmax`` normalises the film radius for the pre-check
+    polynomial: ``1/poly_scale`` when the polynomial is used, else
+    ``1/keys[-1]`` of the profile, 1 without a pre-check."""
     dev = lens.ior.device
     f = torch.float32
     sw = torch.as_tensor(sensor_width, dtype=f, device=dev)
-    inv_dmax = 1.0 / lens.profile.poly_scale.to(f)
+    prof = lens.profile
+    if use_profile and use_poly and prof.poly_scale is not None:
+        inv_dmax = 1.0 / prof.poly_scale.to(f)
+    elif use_profile:
+        inv_dmax = 1.0 / prof.keys[-1].to(f)
+    else:
+        inv_dmax = torch.tensor(1.0, dtype=f, device=dev)
     return torch.stack(
         [
             lens.origin_shift.to(f),
@@ -149,34 +185,47 @@ def kernel_scalars(lens: LensSystem, sensor_width: Tensor, spacing: Tensor,
     )
 
 
-def check_supported(lens: LensSystem) -> None:
-    """Raise for lens states outside this kernel's variant."""
-    if lens.lut is None:
-        raise NotImplementedError(
-            "raytraced kernel without the exit-pupil LUT: ROADMAP Queue 1 "
-            "item 1 (raytraced variants)"
-        )
+class Variant(NamedTuple):
+    """The kernel's static variant, as ``raytraced_fused`` derives it from
+    the lens state and the caller's flags."""
+
+    use_lut: bool       # exit-pupil LUT shaping (else naive first element)
+    use_profile: bool   # pupil pre-check
+    use_poly: bool      # pre-check from the Horner polynomial (else the
+    #                     per-key select chain of the shaping table)
+    circles: bool       # 2-circle bound (else the harmonic cos series)
+    flags: Tuple[int, ...]  # static element flags; () = from the table
+    iris_idx: int       # refract-identity element, -1 = none
+
+
+def variant(lens: LensSystem, use_lut: bool, use_profile: bool,
+            presampled: bool) -> Variant:
+    """The variant a state and flags select, or ``ValueError`` for a state
+    that lacks what the flags ask for."""
+    if use_lut and lens.lut is None:
+        raise ValueError("use_lut needs a state compiled with the LUT "
+                         "(kolb_sampling_lut=True)")
     prof = lens.profile
-    if prof is None:
-        raise NotImplementedError(
-            "raytraced kernel without the pupil pre-check: ROADMAP Queue 1 "
-            "item 1 (raytraced variants)"
-        )
-    if prof.kind != "circles":
-        raise NotImplementedError(
-            f"pre-check bound kind {prof.kind!r}: only 'circles' is ported "
-            "(harmonic bound: ROADMAP Queue 1 item 1, raytraced variants)"
-        )
-    if not lens.profile_poly or prof.poly is None:
-        raise NotImplementedError(
-            "pre-check from the per-key select chain (profile_poly=False): "
-            "ROADMAP Queue 1 item 1 (raytraced variants)"
-        )
-    if len(lens.elem_flags) != lens.count:
-        raise NotImplementedError(
-            "lens state without static element flags: ROADMAP Queue 1 "
-            "item 1 (raytraced variants)"
-        )
+    if use_profile and prof is None:
+        raise ValueError("use_profile needs a state compiled with the "
+                         "pupil pre-check")
+    if use_profile and presampled and lens.profile_domain != "square":
+        # bokeh offsets fill [-1, 1]^2: a disk-fitted bound is unsound at
+        # the corners (the JAX kernel asserts the same)
+        raise ValueError("a presampled (image bokeh) pre-check needs a "
+                         "square-domain profile")
+    use_poly = bool(use_profile and lens.profile_poly)
+    if use_poly and prof.poly is None:
+        raise ValueError("profile_poly is set but the profile has no poly")
+    flags = (tuple(lens.elem_flags) if len(lens.elem_flags) == lens.count
+             else ())
+    return Variant(
+        use_lut=bool(use_lut), use_profile=bool(use_profile),
+        use_poly=use_poly,
+        circles=bool(use_profile and prof.kind == "circles"),
+        flags=flags,
+        iris_idx=lens.aperture_element if lens.iris_identity else -1,
+    )
 
 
 # ------------------------------------------------------- per-ray functions
@@ -242,10 +291,15 @@ def _fast_sqrt(x: Tensor) -> Tensor:
     return x * torch.rsqrt(torch.clamp_min(x, TINY))
 
 
-def _shaping(fx, fy, table, spacing, prof, inv_dmax):
-    """Per-ray LUT lerp, fastSin rotation and pre-check circle coefficients
-    (``_shaping_from_table`` with the LUT, the polynomial profile and the
-    circle bound)."""
+def _shaping(fx, fy, table, spacing, prof, inv_dmax, v: Variant):
+    """Per-ray shaping affine and pre-check coefficients
+    (``_shaping_from_table``).  Returns ``(sa, sb, kx, ky, pcs)``: with the
+    LUT, the lerped scale and centroid rotated by fastSin/fastCos of the
+    film angle and folded into ``dx = lx*sa - ly*sb + kx``, ``dy = lx*sb +
+    ly*sa + ky``; naive shaping returns ``None`` for all four.  ``pcs`` are
+    the bound's four coefficients, lerped per key (select chain) or by
+    Horner in ``t = min(dist * inv_dmax, 1)``, the latter switched off
+    beyond the fitted domain; circle centres come pre-doubled."""
     n_keys = table.shape[0]
     dist = torch.sqrt(fx * fx + fy * fy)
     i_lb = torch.clamp(torch.ceil(dist / spacing).to(torch.int32), 0, n_keys - 1)
@@ -258,55 +312,84 @@ def _shaping(fx, fy, table, spacing, prof, inv_dmax):
     perc = torch.where(dist == 0.0, torch.zeros_like(perc), perc)
     lb = table[i_lb.long()]
     pr = table[i_prev.long()]
-    ms = lb[:, 0] + perc * (pr[:, 0] - lb[:, 0])
-    trn = lb[:, 1] + perc * (pr[:, 1] - lb[:, 1])
-    theta = torch.atan2(fy, fx)
-    sn = fast_sin(theta)
-    cs = fast_cos(theta)
 
-    t_raw = dist * inv_dmax
-    t = torch.clamp_max(t_raw, 1.0)
-    deg = len(prof[0]) - 1
-    pcs = []
-    for j in range(4):
-        acc = torch.zeros_like(t) + prof[j][deg]
-        for k in range(deg - 1, -1, -1):
-            acc = acc * t + prof[j][k]
-        pcs.append(acc)
-    a1, q1, a2, q2 = pcs
-    off = t_raw > 1.0
-    q1 = torch.where(off, torch.full_like(q1, BIG), q1)
-    q2 = torch.where(off, torch.full_like(q2, BIG), q2)
-    # pre-doubled circle centers
-    a1d = a1 * 2.0
-    a2d = a2 * 2.0
-    return ms, trn, sn, cs, (a1d, q1, a2d, q2)
+    def lerp(c):
+        return lb[:, c] + perc * (pr[:, c] - lb[:, c])
+
+    sa = sb = kx = ky = pcs = None
+    if v.use_lut:
+        ms, trn = lerp(0), lerp(1)
+        theta = torch.atan2(fy, fx)
+        sn = fast_sin(theta)
+        cs = fast_cos(theta)
+        sa, sb = ms * cs, ms * sn
+        kx, ky = trn * cs - fx, trn * sn - fy
+    if v.use_profile and not v.use_poly:
+        pcs = [lerp(c) for c in (2, 3, 4, 5)]
+    elif v.use_profile:
+        t_raw = dist * inv_dmax
+        t = torch.clamp_max(t_raw, 1.0)
+        deg = len(prof[0]) - 1
+        pcs = []
+        for j in range(4):
+            acc = torch.zeros_like(t) + prof[j][deg]
+            for k in range(deg - 1, -1, -1):
+                acc = acc * t + prof[j][k]
+            pcs.append(acc)
+        off = t_raw > 1.0
+        # beyond the fitted domain the bound passes everything: q -> 1e9
+        # for circles, c0 -> 1e9 for the harmonic series
+        for j in ((1, 3) if v.circles else (0,)):
+            pcs[j] = torch.where(off, torch.full_like(pcs[j], BIG), pcs[j])
+    if v.circles:
+        pcs[0] = pcs[0] * 2.0
+        pcs[2] = pcs[2] * 2.0
+    return sa, sb, kx, ky, pcs
 
 
-def _bound_pass(lx, ly, pcs):
-    a1d, q1, a2d, q2 = pcs
-    rr = lx * lx + ly * ly
-    return ((rr - a1d * lx) <= q1) & ((rr - a2d * lx) <= q2)
+def _bound_pass(lx, ly, pcs, circles):
+    """Whether a candidate offset passes the pre-check bound
+    (``_bound_pass``): inside both circles, or inside the polar bound
+    ``rho <= c0 + c1 cos + c2 cos2 + c4 cos4``."""
+    if circles:
+        a1d, q1, a2d, q2 = pcs
+        rr = lx * lx + ly * ly
+        return ((rr - a1d * lx) <= q1) & ((rr - a2d * lx) <= q2)
+    pc0, pc1, pc2, pc4 = pcs
+    rho2 = lx * lx + ly * ly
+    r_inv = torch.rsqrt(torch.clamp_min(rho2, RHO2_MIN))
+    rho = rho2 * r_inv
+    cphi = lx * r_inv
+    t2 = 2.0 * cphi * cphi - 1.0
+    t4 = 2.0 * t2 * t2 - 1.0
+    return rho <= pc0 + pc1 * cphi + pc2 * t2 + pc4 * t4
 
 
-def _bound_dead(pcs):
-    a1d, q1, a2d, q2 = pcs
+def _bound_dead(pcs, circles):
+    """Whether the bound rejects every candidate of the domain
+    (``_bound_dead``): such a ray takes its whole budget without a trace."""
+    if circles:
+        a1d, q1, a2d, q2 = pcs
 
-    def mn(a):
-        aa = torch.abs(a)
-        return torch.where(aa <= 2.0, -0.25 * a * a, 1.0 - aa)
+        def mn(a):
+            aa = torch.abs(a)
+            return torch.where(aa <= 2.0, -0.25 * a * a, 1.0 - aa)
 
-    return (mn(a1d) > q1) | (mn(a2d) > q2)
+        return (mn(a1d) > q1) | (mn(a2d) > q2)
+    pc0, pc1, pc2, pc4 = pcs
+    return (pc0 + torch.abs(pc1) + torch.abs(pc2) + torch.abs(pc4)) < 0.0
 
 
 def _trace(elems: List[List[float]], flags, iris_idx, ox, oy, oz, dx, dy, dz):
     """Element-stack trace with a latched ``fail`` that freezes a ray at
-    its last reached hit (``_trace_block`` with static flags)."""
+    its last reached hit (``_trace_block``).  With static ``flags`` bit 1
+    picks the hit root and bit 0 gates the TIR test; without them the
+    signed root and the packed TIR threshold are read from the table."""
     inv = torch.rsqrt(dx * dx + dy * dy + dz * dz)
     dx, dy, dz = dx * inv, dy * inv, dz * inv
     fail = torch.zeros_like(ox, dtype=torch.bool)
     tir_any = torch.zeros_like(fail)
-    for i, (cz, eta_sq, inv_r, r_sq, cull_r_sq, eta, _thr, _sign) in enumerate(
+    for i, (cz, eta_sq, inv_r, r_sq, cull_r_sq, eta, thr, sign_r) in enumerate(
         elems
     ):
         lz = cz - oz
@@ -316,7 +399,10 @@ def _trace(elems: List[List[float]], flags, iris_idx, ox, oy, oz, dx, dy, dz):
         pz = lz - tca * dz
         d2 = px * px + py * py + pz * pz
         thc = _fast_sqrt(torch.abs(r_sq - d2))
-        t = tca - thc if flags[i] & 2 else tca + thc
+        if not flags:
+            t = tca + thc * sign_r
+        else:
+            t = tca - thc if flags[i] & 2 else tca + thc
         hx = ox + dx * t
         hy = oy + dy * t
         h2 = hx * hx + hy * hy
@@ -329,8 +415,8 @@ def _trace(elems: List[List[float]], flags, iris_idx, ox, oy, oz, dx, dy, dz):
         wz = cz - oz
         c1 = ((ox * dx + oy * dy) - wz * dz) * inv_r
         cs2 = eta_sq * (1.0 - c1 * c1)
-        if flags[i] & 1:
-            tir = (cs2 > 1.0) & ~fail
+        if not flags or flags[i] & 1:
+            tir = (cs2 > (thr if not flags else 1.0)) & ~fail
             tir_any = tir_any | tir
             fail = fail | tir
         k = eta * c1 - _fast_sqrt(torch.abs(1.0 - cs2))
@@ -342,17 +428,113 @@ def _trace(elems: List[List[float]], flags, iris_idx, ox, oy, oz, dx, dy, dz):
     return ox, oy, oz, dx, dy, dz, ~fail, tir_any
 
 
+# ------------------------------------------------------ retry-plane maps
+
+
+def retry_plane_layout(b: int, bp: int,
+                       tile_rows: int = DEF_TILE_ROWS) -> Tuple[int, int, bool]:
+    """``(tile_rows, plane_tiles, reuse)`` of a TPU camera kernel for ``b``
+    rays and retry planes of ``bp`` draws; ``tile_rows`` is the kernel's
+    default tile (``DEF_TILE_ROWS`` thin lens, ``DEF_RT_TILE_ROWS``
+    raytraced).
+
+    The tile is halved while the batch fits in half a tile
+    (``thinlens_fused``, ``raytraced_fused``); planes shorter than a tile
+    wrap to ``plane_tiles`` whole tiles (``_prep_retry_planes``); ``reuse``
+    says whether grid tiles share plane blocks, which adds the per-reuse
+    rotation."""
+    rows = -(-b // LANES)
+    while tile_rows >= 32 and rows <= tile_rows // 2:
+        tile_rows //= 2
+    grid = -(-rows // tile_rows)
+    plane_tiles = -(-bp // (tile_rows * LANES))
+    return tile_rows, plane_tiles, plane_tiles < grid
+
+
+def _plane_index(ids: Tensor, idx: int, n_planes: int, bp: int,
+                 tile_rows: int, plane_tiles: int, reuse: bool,
+                 lane_step: int) -> Tuple[int, Tensor]:
+    """``(plane, position)`` of presampled draw ``idx`` for the rays at
+    flat indices ``ids``.
+
+    The TPU kernel lays ray ``i`` at row ``R = i // 128``, lane
+    ``l = i % 128`` of tile ``t = R // tile_rows``, row ``r`` in it; tile
+    ``t`` reads plane block ``t % plane_tiles``.  Draw ``idx`` reads plane
+    ``idx % P`` rolled down by ``shift`` rows and right by ``lsh`` lanes (a
+    roll moves element ``j`` to ``j + s``), where the reuse cycle
+    ``cyc = idx // P`` and, when tiles share blocks, the reuse index
+    ``t // plane_tiles`` set the shifts; ``lane_step`` lanes more per eight
+    cycles."""
+    rr, lane = ids // LANES, ids % LANES
+    t, r = rr // tile_rows, rr % tile_rows
+    pidx, cyc = idx % n_planes, idx // n_planes
+    t_reuse = t // plane_tiles if reuse else torch.zeros_like(t)
+    shift = (3 * cyc + 5 * t_reuse) % tile_rows
+    lsh = (lane_step * (cyc // 8) + 21 * t_reuse) % LANES
+    row = (t % plane_tiles) * tile_rows + (r - shift) % tile_rows
+    return pidx, (row * LANES + (lane - lsh) % LANES) % bp
+
+
+def retry_plane_index(ids: Tensor, rnd: int, n_planes: int, bp: int,
+                      tile_rows: int, plane_tiles: int,
+                      reuse: bool) -> Tuple[int, Tensor]:
+    """``(plane, position)`` of thin-lens retry round ``rnd``'s (1-based)
+    presampled draw: draw ``rnd - 1`` of :func:`_plane_index`, with no
+    per-cycle lane roll (``_thinlens_kernel``)."""
+    return _plane_index(ids, rnd - 1, n_planes, bp, tile_rows, plane_tiles,
+                        reuse, 0)
+
+
+def raytraced_plane_index(ids: Tensor, idx: int, n_planes: int, bp: int,
+                          tile_rows: int, plane_tiles: int,
+                          reuse: bool) -> Tuple[int, Tensor]:
+    """``(plane, position)`` of the raytraced kernel's presampled draw
+    ``idx`` (``_plane_draws``): the rotations of :func:`_plane_index` plus
+    seven lanes per eight reuse cycles.  The whole-tile loop numbers the
+    draws: round 0 reads ``0..K-1`` (after the caller's draw), retry round
+    ``rnd`` reads ``K*rnd + j`` with the pre-check and ``rnd - 1``
+    without it."""
+    return _plane_index(ids, idx, n_planes, bp, tile_rows, plane_tiles,
+                        reuse, 7)
+
+
+def _retry_planes(retry_u1, retry_u2, dev) -> Tuple[Tensor, Tensor]:
+    """The presampled retry planes ``[P, Bp]``; zeros ``[1, 128]`` when the
+    caller gave none, as the TPU kernels do."""
+    if retry_u1 is None:
+        z = torch.zeros((1, LANES), dtype=torch.float32, device=dev)
+        return z, z
+    if retry_u1.dim() != 2 or retry_u1.shape != retry_u2.shape:
+        raise ValueError(
+            f"retry planes must be [P, Bp] of one shape, got "
+            f"{tuple(retry_u1.shape)} and {tuple(retry_u2.shape)}"
+        )
+    return retry_u1, retry_u2
+
+
+def _device_planes(retry_u1, retry_u2, dev) -> Tuple[Tensor, Tensor]:
+    """:func:`_retry_planes`, checked and contiguous for a kernel."""
+    bu1, bu2 = _retry_planes(retry_u1, retry_u2, dev)
+    for name, t in (("retry_u1", bu1), ("retry_u2", bu2)):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    return bu1.contiguous(), bu2.contiguous()
+
+
 # ----------------------------------------------------------- entry points
 
 
-def _prepare(lens, sensor_width, seed, batch):
-    check_supported(lens)
+def _prepare(lens, sensor_width, seed, batch, v: Variant):
     elems = pack_elements(lens)
-    table, spacing = shaping_table(lens)
-    prof = lens.profile.poly.to(torch.float32).contiguous()
-    scal = kernel_scalars(lens, sensor_width, spacing, seed, batch)
-    iris_idx = lens.aperture_element if lens.iris_identity else -1
-    return elems, table, prof, scal, iris_idx
+    table, spacing = shaping_table(lens, v.use_lut, v.use_profile)
+    if v.use_poly:
+        prof = lens.profile.poly.to(torch.float32).contiguous()
+    else:
+        prof = torch.zeros((4, 1), dtype=torch.float32, device=elems.device)
+    scal = kernel_scalars(lens, sensor_width, spacing, seed, batch,
+                          v.use_profile, v.use_poly)
+    return elems, table, prof, scal
 
 
 def _check_seed(seed: int) -> int:
@@ -364,64 +546,107 @@ def _check_seed(seed: int) -> int:
 
 def raytraced_plain(
     lens: LensSystem, sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor,
-    sensor_width, seed: int, *, max_tries: int,
+    sensor_width, seed: int, *, max_tries: int, use_lut: bool = True,
+    use_profile: bool = True, presampled: bool = False,
+    retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the kernel on any device: returns
-    ``(origin[B,3], dir[B,3], tries[B] i32, tir[B] i32)``."""
+    ``(origin[B,3], dir[B,3], tries[B] i32, tir[B] i32)``.
+
+    It runs the TPU kernel's whole-tile loop (``compact=False``) over the
+    rays still pending: round 0 and retry rounds ``1..max_tries+1``, each
+    scanning its draws (``K = PRECHECK_DRAWS`` with the pre-check, one
+    without; round 0 first takes the caller's draw for free) until one
+    passes the bound, then tracing that one.  Every draw after the
+    caller's consumes a try."""
     seed = _check_seed(seed)
     b = sx.shape[0]
-    elems_t, table, prof, scal, iris_idx = _prepare(lens, sensor_width, seed, b)
-    elems = elems_t.tolist()
-    flags = lens.elem_flags
-    origin_shift, dz0, _, _, spacing, _, sensor_half, inv_dmax = scal.tolist()
-    max_total = max_tries + 1
     dev = sx.device
+    v = variant(lens, use_lut, use_profile, presampled)
+    elems_t, table, prof, scal = _prepare(lens, sensor_width, seed, b, v)
+    elems = elems_t.tolist()
+    origin_shift, dz0, _, naive_scale, spacing, _, sensor_half, inv_dmax = (
+        scal.tolist())
+    max_total = max_tries + 1
+    k_draws = PRECHECK_DRAWS if v.use_profile else 1
 
     fx = sx * sensor_half
     fy = sy * sensor_half
-    ms, trn, sn, cs, pcs = _shaping(
-        fx, fy, table, spacing, prof.tolist(), inv_dmax
-    )
-    sa, sb = ms * cs, ms * sn
-    kx, ky = trn * cs - fx, trn * sn - fy
-
-    dead = _bound_dead(pcs)
-    tries = torch.where(dead, max_total, 0).to(torch.int32)
+    sa, sb, kx, ky, pcs = _shaping(fx, fy, table, spacing, prof.tolist(),
+                                   inv_dmax, v)
+    tries = torch.zeros(b, dtype=torch.int32, device=dev)
+    if v.use_profile:
+        tries = torch.where(_bound_dead(pcs, v.circles), max_total,
+                            tries).to(torch.int32)
     ok = torch.zeros(b, dtype=torch.bool, device=dev)
     tir = torch.zeros(b, dtype=torch.int32, device=dev)
     payload = [torch.zeros(b, dtype=torch.float32, device=dev)
                for _ in range(6)]
     ids = torch.arange(b, dtype=torch.int64, device=dev)
+    if presampled:
+        bu1, bu2 = _retry_planes(retry_u1, retry_u2, dev)
+        n_planes, bp = bu1.shape
+        layout = retry_plane_layout(b, bp, DEF_RT_TILE_ROWS)
 
-    for step in range(max_total + 1):
-        if step == 0:
-            active = ~dead  # draw 0 is the caller's and consumes no try
-            lx, ly = concentric(u1, u2)
-        else:
-            active = ~ok & (tries < max_total)
-            if not bool(active.any()):
-                break
-            h1 = hash_uniform(ids, seed, tries, SALT_U1)
-            h2 = hash_uniform(ids, seed, tries, SALT_U2)
-            lx, ly = concentric(h1, h2)
-            tries = tries + active.to(torch.int32)
-        take = (active & _bound_pass(lx, ly, pcs)).nonzero().squeeze(1)
-        if take.numel() == 0:
+    for rnd in range(max_total + 1):
+        act = (~ok & (tries < max_total)).nonzero().squeeze(1)
+        if act.numel() == 0:
+            break
+        a_ids, a_tries = ids[act], tries[act]
+        a_pcs = [p[act] for p in pcs] if v.use_profile else None
+        found = torch.zeros(act.shape[0], dtype=torch.bool, device=dev)
+        cx = torch.zeros(act.shape[0], dtype=torch.float32, device=dev)
+        cy = torch.zeros_like(cx)
+        n_draws = k_draws + 1 if (rnd == 0 and v.use_profile) else k_draws
+        for j in range(n_draws):
+            if rnd == 0 and j == 0:
+                # the caller's draw: no try consumed
+                lx, ly = u1[act], u2[act]
+                if not presampled:
+                    lx, ly = concentric(lx, ly)
+                can = torch.ones_like(found)
+            else:
+                if presampled:
+                    if not v.use_profile:
+                        idx = rnd - 1
+                    else:
+                        idx = j - 1 if rnd == 0 else k_draws * rnd + j
+                    pidx, pos = raytraced_plane_index(a_ids, idx, n_planes,
+                                                      bp, *layout)
+                    lx, ly = bu1[pidx][pos], bu2[pidx][pos]
+                else:
+                    lx, ly = concentric(
+                        hash_uniform(a_ids, seed, a_tries, SALT_U1),
+                        hash_uniform(a_ids, seed, a_tries, SALT_U2))
+                can = ~found & (a_tries < max_total)
+                a_tries = a_tries + can.to(torch.int32)
+            take = can
+            if v.use_profile:
+                take = can & _bound_pass(lx, ly, a_pcs, v.circles)
+            cx = torch.where(take, lx, cx)
+            cy = torch.where(take, ly, cy)
+            found = found | take
+        tries[act] = a_tries
+        sel = found.nonzero().squeeze(1)
+        if sel.numel() == 0:
             continue
-        g_lx, g_ly = lx[take], ly[take]
-        g_sa, g_sb = sa[take], sb[take]
-        dx = g_lx * g_sa - g_ly * g_sb + kx[take]
-        dy = g_lx * g_sb + g_ly * g_sa + ky[take]
-        g_fx = fx[take]
+        g = act[sel]
+        g_lx, g_ly, g_fx, g_fy = cx[sel], cy[sel], fx[g], fy[g]
+        if v.use_lut:
+            g_sa, g_sb = sa[g], sb[g]
+            dx = g_lx * g_sa - g_ly * g_sb + kx[g]
+            dy = g_lx * g_sb + g_ly * g_sa + ky[g]
+        else:
+            dx = g_lx * naive_scale - g_fx
+            dy = g_ly * naive_scale - g_fy
         fz = torch.full_like(g_fx, origin_shift)
         dz = torch.full_like(g_fx, dz0)
-        *res, nok, ntir = _trace(
-            elems, flags, iris_idx, g_fx, fy[take], fz, dx, dy, dz
-        )
+        *res, nok, ntir = _trace(elems, v.flags, v.iris_idx, g_fx, g_fy, fz,
+                                 dx, dy, dz)
         for p, r in zip(payload, res):
-            p[take] = r
-        ok[take] = nok
-        tir[take] += ntir.to(torch.int32)
+            p[g] = r
+        ok[g] = nok
+        tir[g] += ntir.to(torch.int32)
 
     origin = -torch.stack(payload[:3], dim=-1)
     direction = -torch.stack(payload[3:], dim=-1)
@@ -432,7 +657,7 @@ def _kernel_lib():
     lib = _build.load("raytraced")
     fn = lib.zoic_raytraced_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 14 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -447,21 +672,26 @@ def _check_input(name: str, t: Tensor, b: int, device) -> None:
         )
 
 
-# (id(lens), id(sensor_width), device) -> (weakref(lens),
-# weakref(sensor_width), tables): the kernel's tables are constants of a
-# compiled state, so they are packed once per state, not once per call
+# (id(lens), id(sensor_width), device, use_lut, use_profile) ->
+# (weakref(lens), weakref(sensor_width), tables): the kernel's tables are
+# constants of a compiled state, so they are packed once per state and
+# variant, not once per call
 _TABLES: dict = {}
 
+# bits of the kernel's variant word (csrc/raytraced.cu)
+_V_LUT, _V_PROFILE, _V_POLY, _V_CIRCLES, _V_PRESAMPLED, _V_STATIC = (
+    1, 2, 4, 8, 16, 32)
 
-def _kernel_tables(lens: LensSystem, sensor_width, dev):
-    """``(elems, flags, shap, prof, scal, iris_idx)`` on ``dev`` for the
-    kernel.  The seed and batch slots of ``scal`` hold 0: the kernel takes
-    both as int arguments."""
-    key = (id(lens), id(sensor_width), str(dev))
+
+def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
+    """``(elems, flags, shap, prof, scal)`` on ``dev`` for the kernel.  The
+    seed and batch slots of ``scal`` hold 0: the kernel takes both as int
+    arguments."""
+    key = (id(lens), id(sensor_width), str(dev), v.use_lut, v.use_profile)
     hit = _TABLES.get(key)
     if hit is not None and hit[0]() is lens and hit[1]() is sensor_width:
         return hit[2]
-    elems, shap, prof, scal, iris_idx = _prepare(lens, sensor_width, 0, 0)
+    elems, shap, prof, scal = _prepare(lens, sensor_width, 0, 0, v)
     n_elems, n_keys, n_coef = elems.shape[0], shap.shape[0], prof.shape[1]
     if n_elems > MAX_ELEMS or n_keys > MAX_KEYS or n_coef > MAX_COEF:
         raise ValueError(
@@ -469,13 +699,14 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev):
             f"coefficients) exceed the kernel's ({MAX_ELEMS}, {MAX_KEYS}, "
             f"{MAX_COEF})"
         )
-    flags = torch.tensor(lens.elem_flags, dtype=torch.int32, device=dev)
+    flags = torch.tensor(v.flags or (0,) * n_elems, dtype=torch.int32,
+                         device=dev)
     elems, shap, prof, scal = (t.to(dev, torch.float32).contiguous()
                                for t in (elems, shap, prof, scal))
-    tables = (elems, flags, shap, prof, scal, iris_idx)
+    tables = (elems, flags, shap, prof, scal)
     if isinstance(sensor_width, Tensor):
-        for k in [k for k, v in _TABLES.items()
-                  if v[0]() is None or v[1]() is None]:
+        for k in [k for k, val in _TABLES.items()
+                  if val[0]() is None or val[1]() is None]:
             del _TABLES[k]
         _TABLES[key] = (weakref.ref(lens), weakref.ref(sensor_width), tables)
     return tables
@@ -484,24 +715,25 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev):
 def raytraced_fused(
     lens: LensSystem, sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor,
     sensor_width, seed: int, *, max_tries: int, use_lut: bool = True,
-    use_profile: bool = True,
+    use_profile: bool = True, presampled: bool = False,
+    retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Fused raytraced camera-ray generation over flat ``[B]`` inputs.
 
     Returns ``(origin[B,3], dir[B,3], tries[B] i32, tir[B] i32)``, where
     ``tries`` counts the retry draws a ray consumed and ``tir`` its
-    attempts that failed by total internal reflection.  CUDA tensors
-    launch ``csrc/raytraced.cu``; CPU tensors run :func:`raytraced_plain`.
-    """
+    attempts that failed by total internal reflection.  ``use_lut``
+    selects exit-pupil LUT shaping (else naive first-element targeting),
+    ``use_profile`` the pupil pre-check.  With ``presampled`` the
+    ``(u1, u2)`` inputs are [-1, 1] aperture offsets (image bokeh) and the
+    retry draws come from the ``[P, Bp]`` planes ``retry_u1/retry_u2``
+    (:func:`raytraced_plane_index`).  CUDA tensors launch
+    ``csrc/raytraced.cu``; CPU tensors run :func:`raytraced_plain`."""
     global launches
-    if not (use_lut and use_profile):
-        raise NotImplementedError(
-            "raytraced kernel variants without the LUT or the pre-check: "
-            "ROADMAP Queue 1 item 1 (raytraced variants)"
-        )
+    kw = dict(max_tries=max_tries, use_lut=use_lut, use_profile=use_profile,
+              presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2)
     if sx.device.type == "cpu":
-        return raytraced_plain(lens, sx, sy, u1, u2, sensor_width, seed,
-                               max_tries=max_tries)
+        return raytraced_plain(lens, sx, sy, u1, u2, sensor_width, seed, **kw)
     if sx.device.type != "cuda":
         raise ValueError(f"unsupported device {sx.device}")
     seed = _check_seed(seed)
@@ -509,9 +741,21 @@ def raytraced_fused(
     dev = sx.device
     for name, t in (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)):
         _check_input(name, t, b, dev)
-    elems, flags, shap, prof, scal, iris_idx = _kernel_tables(
-        lens, sensor_width, dev
-    )
+    v = variant(lens, use_lut, use_profile, presampled)
+    elems, flags, shap, prof, scal = _kernel_tables(lens, sensor_width, dev,
+                                                    v)
+    bits = ((_V_LUT if v.use_lut else 0) | (_V_PROFILE if v.use_profile else 0)
+            | (_V_POLY if v.use_poly else 0)
+            | (_V_CIRCLES if v.circles else 0)
+            | (_V_PRESAMPLED if presampled else 0)
+            | (_V_STATIC if v.flags else 0))
+    bu1 = bu2 = None
+    n_planes = bp = tile_rows = plane_tiles = reuse = 0
+    if presampled:
+        bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
+        n_planes, bp = bu1.shape
+        tile_rows, plane_tiles, reuse = retry_plane_layout(
+            b, bp, DEF_RT_TILE_ROWS)
     ins = [t.contiguous() for t in (sx, sy, u1, u2)]
     origin = torch.empty((b, 3), dtype=torch.float32, device=dev)
     direction = torch.empty((b, 3), dtype=torch.float32, device=dev)
@@ -524,12 +768,15 @@ def raytraced_fused(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             *(t.data_ptr() for t in ins),
+            bu1.data_ptr() if bu1 is not None else None,
+            bu2.data_ptr() if bu2 is not None else None,
             elems.data_ptr(), flags.data_ptr(), shap.data_ptr(),
             prof.data_ptr(), scal.data_ptr(),
             origin.data_ptr(), direction.data_ptr(), tries.data_ptr(),
             tir.data_ptr(),
-            b, elems.shape[0], shap.shape[0], prof.shape[1], iris_idx,
-            max_tries + 1, seed, stream,
+            b, elems.shape[0], shap.shape[0], prof.shape[1], v.iris_idx,
+            max_tries + 1, seed, bits, PRECHECK_DRAWS, n_planes, bp,
+            tile_rows, plane_tiles, int(reuse), stream,
         )
     if err != 0:
         raise RuntimeError(f"raytraced kernel launch failed: CUDA error {err}")
@@ -538,61 +785,6 @@ def raytraced_fused(
 
 
 # -------------------------------------------------------------- thin lens
-
-
-def retry_plane_layout(b: int, bp: int) -> Tuple[int, int, bool]:
-    """``(tile_rows, plane_tiles, reuse)`` of the TPU thin-lens kernel for
-    ``b`` rays and retry planes of ``bp`` draws.
-
-    ``tile_rows`` starts at ``DEF_TILE_ROWS`` and is halved while the batch
-    fits in half a tile (``thinlens_fused``); planes shorter than a tile
-    wrap to ``plane_tiles`` whole tiles (``_prep_retry_planes``);
-    ``reuse`` says whether grid tiles share plane blocks, which adds the
-    per-reuse rotation."""
-    rows = -(-b // LANES)
-    tile_rows = DEF_TILE_ROWS
-    while tile_rows >= 32 and rows <= tile_rows // 2:
-        tile_rows //= 2
-    grid = -(-rows // tile_rows)
-    plane_tiles = -(-bp // (tile_rows * LANES))
-    return tile_rows, plane_tiles, plane_tiles < grid
-
-
-def retry_plane_index(ids: Tensor, rnd: int, n_planes: int, bp: int,
-                      tile_rows: int, plane_tiles: int,
-                      reuse: bool) -> Tuple[int, Tensor]:
-    """``(plane, position)`` of round ``rnd``'s presampled retry draw for
-    the rays at flat indices ``ids``.
-
-    The TPU kernel lays ray ``i`` at row ``R = i // 128``, lane
-    ``l = i % 128`` of tile ``t = R // tile_rows``, row ``r`` in it; tile
-    ``t`` reads plane block ``t % plane_tiles``.  Round ``rnd`` reads plane
-    ``(rnd-1) % P`` rolled down by ``shift`` rows and right by ``lsh``
-    lanes (a roll moves element ``j`` to ``j + s``), where the reuse cycle
-    ``(rnd-1) // P`` and, when tiles share blocks, the reuse index
-    ``t // plane_tiles`` set the shifts."""
-    rr, lane = ids // LANES, ids % LANES
-    t, r = rr // tile_rows, rr % tile_rows
-    pidx, cyc = (rnd - 1) % n_planes, (rnd - 1) // n_planes
-    t_reuse = t // plane_tiles if reuse else torch.zeros_like(t)
-    shift = (3 * cyc + 5 * t_reuse) % tile_rows
-    lsh = (21 * t_reuse) % LANES
-    row = (t % plane_tiles) * tile_rows + (r - shift) % tile_rows
-    return pidx, (row * LANES + (lane - lsh) % LANES) % bp
-
-
-def _retry_planes(retry_u1, retry_u2, dev) -> Tuple[Tensor, Tensor]:
-    """The presampled retry planes ``[P, Bp]``; zeros ``[1, 128]`` when the
-    caller gave none, as ``thinlens_fused`` does."""
-    if retry_u1 is None:
-        z = torch.zeros((1, LANES), dtype=torch.float32, device=dev)
-        return z, z
-    if retry_u1.dim() != 2 or retry_u1.shape != retry_u2.shape:
-        raise ValueError(
-            f"retry planes must be [P, Bp] of one shape, got "
-            f"{tuple(retry_u1.shape)} and {tuple(retry_u2.shape)}"
-        )
-    return retry_u1, retry_u2
 
 
 def _f32_scalar(x) -> float:
@@ -724,12 +916,7 @@ def thinlens_fused(
     bu1 = bu2 = None
     n_planes = bp = tile_rows = plane_tiles = reuse = 0
     if presampled and has_ov:
-        bu1, bu2 = _retry_planes(retry_u1, retry_u2, dev)
-        for name, t in (("retry_u1", bu1), ("retry_u2", bu2)):
-            if t.device != dev or t.dtype != torch.float32:
-                raise ValueError(f"{name} must be float32 on {dev}, got "
-                                 f"{t.dtype} on {t.device}")
-        bu1, bu2 = bu1.contiguous(), bu2.contiguous()
+        bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
         n_planes, bp = bu1.shape
         tile_rows, plane_tiles, reuse = retry_plane_layout(b, bp)
     ins = [t.contiguous() for t in (sx, sy, u1, u2)]
