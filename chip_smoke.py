@@ -18,24 +18,38 @@ rays), through the entry points a user calls:
   select chain, most of the film dead), the headline with image bokeh
   (presampled offsets and retry planes, square-domain pre-check); then
   the headline lens with naive first-element shaping, and the headline
-  without the pre-check.
+  without the pre-check;
+* the lens compile: every camera of ``zoic_tpu_torch.data.CAMERAS``
+  compiled on the card from the port's lens files by ``compile_camera``
+  and held against its shipped state (the lens-decided static fields
+  exactly, the solve's scalars to 1e-5, the LUT and bound by what they
+  do: attempts/ray and the vignetted fraction of ``create_rays`` on both);
+* the op-rate microbenchmark kernel, its 13 cases against their plain
+  versions (bit-equal) and beside their bounds, the fma case also with
+  contraction on;
+* the bench, ``python -m zoic_tpu_torch.bench``'s headline, which
+  measures its peak op rate with the microbenchmark kernel.
 
     python3 chip_smoke.py
 
-Phases, one line each: the device; the kernel builds (three ``nvcc`` runs
-in parallel); then per camera the run through ``create_rays`` checked for
-launches, finite outputs and its run counters, the kernel against its
-plain PyTorch version on the same inputs, and timings with CUDA events;
-the bokeh kernel against its plain version on 4,194,304 draws
-(bit-equal).  Then one JSON line per the kernel table, the card's name
-and power limit from nvidia-smi, and last ``{"ok": true, "device":
-...}``.  Any failed check exits non-zero before the last line.  It needs
-a CUDA card and ``nvcc``, and imports nothing of jax.
+Phases, one line each: the device; the kernel builds (five ``nvcc`` runs
+in parallel: four sources, the microbenchmark twice); then per camera the
+run through ``create_rays`` checked for launches, finite outputs and its
+run counters, the kernel against its plain PyTorch version on the same
+inputs, and timings with CUDA events; the bokeh kernel against its plain
+version on 4,194,304 draws (bit-equal); the compiles; the microbenchmark;
+the bench's JSON line.  Then one JSON line per the kernel table, the
+card's name and power limit from nvidia-smi, and last ``{"ok": true,
+"device": ...}``.  Any failed check exits non-zero before the last line.
+It needs a CUDA card and ``nvcc``, and imports nothing of jax.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -53,7 +67,37 @@ SEED = 20261016
 # agree and are live must agree to 1e-5 absolute
 MAX_TRIES_MISMATCH = 419
 PAYLOAD_ATOL = 1e-5
-KERNELS = ("raytraced", "thinlens", "bokeh")
+KERNELS = ("raytraced", "thinlens", "bokeh", "roofline")
+# the builds: every source with --fmad=false, the microbenchmark also with
+# fma contraction on
+BUILDS = (*KERNELS, ("roofline", True))
+# the card's published peaks (H100 SXM datasheet): HBM
+# bytes/s, and float32 outside the tensor cores, 67 TFLOP/s counting an FMA
+# as two; one element-op per lane per clock is half of it
+HBM_BYTES_PER_S = 3.35e12
+F32_ELEMENT_OPS_PER_S = 67e12 / 2
+# element-ops per ray: the raytraced kernel's is the bench's work count
+# (zoic_tpu_torch.bench.USEFUL_OPS_PER_RAY); the thin-lens kernel's and the
+# bokeh kernel's are upper estimates from their sources, far below their
+# byte bounds either way
+THINLENS_OPS_PER_RAY = 60
+BOKEH_OPS_PER_DRAW = 30
+# compile vs shipped state: solve scalars relative, create_rays attempts/ray
+# relative and vignetted fraction absolute
+SOLVE_RTOL = 1e-5
+ATTEMPTS_RTOL = 0.02
+VIGNETTED_ATOL = 0.01
+# static fields decided by the lens alone, and those decided by Monte-Carlo
+# estimates (the pre-check's form, its polynomial gate, the dead-film
+# fraction's first decimal): the compile draws from a torch.Generator, the
+# shipped states from jax.random, and a near tie can go either way
+LENS_STATICS = ("aperture_element", "iris_identity", "elem_flags",
+                "profile_domain")
+MC_STATICS = ("profile_kind", "profile_poly", "dead_frac")
+SOLVE_SCALARS = ("origin_shift", "user_aperture_radius", "focal_length_ratio",
+                 "traced_focal_length", "aperture_distance")
+# the bench phase: the headline at the full batch, iterations cut
+BENCH_ARGS = ("--batch", str(BATCH), "--iters", "2", "--inner", "8")
 # raytraced phases after the headline: (phase, shipped camera
 # (zoic_tpu_torch.data.CAMERAS), config changes, time the plain version)
 RAYTRACED_CAMERAS = (
@@ -97,8 +141,7 @@ def raytraced_config(zt, camera: str, bokeh_path: str = "", **changes):
     kw = dict(cam.config_kwargs(), max_tries=MAX_TRIES, **changes)
     return zt.CameraConfig(
         lens_model=zt.LensModel.RAYTRACED,
-        lens_data_path=os.path.join("zoic_tpu", "data", "lenses",
-                                    f"{cam.lens}.dat"),
+        lens_data_path=zt.data.lens_path(cam.lens),
         bokeh_path=bokeh_path if cam.use_image else "",
         **kw,
     )
@@ -155,10 +198,25 @@ def time_ms(fn, make_args, warmup=3, iters=10):
     return times
 
 
-def reset_counts(trace_kernel, bokeh_kernel) -> None:
+def reset_counts(trace_kernel, bokeh_kernel, roofline_kernel=None) -> None:
     trace_kernel.launches = 0
     trace_kernel.thinlens_launches = 0
     bokeh_kernel.launches = 0
+    if roofline_kernel is not None:
+        roofline_kernel.launches = 0
+
+
+def bound(bytes_moved: float, ops: float):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the card's
+    memory rate and the element-ops over its f32 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / F32_ELEMENT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def median_line(timed) -> str:
@@ -259,7 +317,9 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
         lambda *a: zt.create_rays(state, cfg, *a[:4], seed=a[4]), e2e_args)
     print(f"[{tags[2]}] median of 10 (3 warm-up), B = {BATCH}, on {smi}: "
           + median_line(timed), flush=True)
+    planes = [t for t in (kw["retry_u1"], kw["retry_u2"]) if t is not None]
     return {"launches": n_launch, "bokeh_launches": n_bokeh,
+            "bytes": nbytes(sx, sy, u1, u2, ko, kd, kt, ktir, *planes),
             "max_abs_err": max_abs_err, "mismatches": mismatch,
             "attempts": attempts, "vignetted_frac": vig_frac,
             "kernel_ms": statistics.median(timed["kernel"]),
@@ -363,6 +423,7 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     print(f"[{tag}c {name} timing] median of 10 (3 warm-up), B = {BATCH}, "
           f"on {smi}: " + median_line(timed), flush=True)
     return {"thinlens_launches": n_thin, "bokeh_launches": n_bokeh,
+            "bytes": nbytes(*args[:4], ko, kd, kt, *planes.values()),
             "max_abs_err": err,
             "kernel_ms": statistics.median(timed["kernel"]),
             "plain_ms": statistics.median(timed["plain"]),
@@ -396,9 +457,159 @@ def bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, tag):
           f"draws, on {smi}: " + median_line(timed).replace("rays/s",
                                                             "draws/s"),
           flush=True)
-    return {"max_abs_err": err,
+    tables = [getattr(image, f) for f in ("cdf_row", "row_indices", "cdf_col",
+                                          "dx_col", "dy_srow")]
+    return {"max_abs_err": err, "bytes": nbytes(u1, u2, kdx, kdy, *tables),
             "kernel_ms": statistics.median(timed["kernel"]),
             "plain_ms": statistics.median(timed["plain"])}
+
+
+def lens_statics(lens) -> dict:
+    out = {f: getattr(lens, f) for f in LENS_STATICS + MC_STATICS
+           if f != "profile_kind"}
+    out["profile_kind"] = lens.profile.kind if lens.profile else None
+    return out
+
+
+def compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi, tag):
+    """Every camera of ``zt.data.CAMERAS`` compiled on the card from the
+    port's lens files, against the state the JAX package compiled: the
+    lens-decided static fields exactly, the solve's scalars to
+    ``SOLVE_RTOL``, and the LUT and pre-check bound by what they do, since
+    the draws differ: ``create_rays`` on both states on the same inputs and
+    seed, attempts/ray within ``ATTEMPTS_RTOL`` and the vignetted fraction
+    within ``VIGNETTED_ATOL``.  The Monte-Carlo-decided statics are
+    printed beside the shipped ones."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sx, sy, lx, ly = draws(g, BATCH, dev)
+    seed = (SEED + 3) % (1 << 22)
+    out = {}
+    for i, name in enumerate(zt.data.CAMERAS):
+        cfg = raytraced_config(zt, name, bokeh_path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = zt.compile_camera(cfg, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ref = zt.load_state(zt.data.state_path(name), device=dev)
+        got, want = lens_statics(st.lens), lens_statics(ref.lens)
+        for f in LENS_STATICS:
+            check(got[f] == want[f],
+                  f"compile {name}: {f} {got[f]!r} != shipped {want[f]!r}")
+        rel = {}
+        for f in SOLVE_SCALARS:
+            a, b = float(getattr(st.lens, f)), float(getattr(ref.lens, f))
+            rel[f] = abs(a - b) / abs(b) if b != 0.0 else abs(a)
+            check(rel[f] <= SOLVE_RTOL,
+                  f"compile {name}: {f} {a} vs shipped {b}")
+        stats = [zt.create_rays(s_, cfg, sx, sy, lx, ly, seed=seed)[1]
+                 for s_ in (st, ref)]
+        att = [1.0 + int(s_.tries_total) / BATCH for s_ in stats]
+        vig = [int(s_.vignetted) / BATCH for s_ in stats]
+        mc = {f: (got[f], want[f]) for f in MC_STATICS}
+        print(f"[{tag}.{i} compile {name}] {secs:.2f} s; lens statics equal; "
+              f"max solve rel err {max(rel.values()):.2e} (limit "
+              f"{SOLVE_RTOL}); attempts/ray {att[0]:.6f} vs shipped "
+              f"{att[1]:.6f}; vignetted {vig[0]:.6f} vs {vig[1]:.6f}; "
+              f"Monte-Carlo statics (compiled, shipped) {mc}", flush=True)
+        check(abs(att[0] - att[1]) <= ATTEMPTS_RTOL * att[1],
+              f"compile {name}: attempts/ray {att[0]} vs shipped {att[1]}")
+        check(abs(vig[0] - vig[1]) <= VIGNETTED_ATOL,
+              f"compile {name}: vignetted {vig[0]} vs shipped {vig[1]}")
+        out[name] = {"compile_s": secs, "attempts": att, "vignetted": vig,
+                     "mc_statics_equal": all(a == b for a, b in mc.values())}
+    print(f"[{tag} compile summary] on {smi}: seconds per compile " + ", ".join(
+        f"{n} {r['compile_s']:.2f}" for n, r in out.items()), flush=True)
+    return out
+
+
+def roofline_phase(rk, roofline, profiling, dev, smi, tag):
+    """The op-rate microbenchmark kernel: each case against its plain
+    version at the tool's default shape (bit-equal in the ``--fmad=false``
+    build), then each case's element-op rate beside its bound, and the fma
+    case with contraction on."""
+    tile, grid, reps, ns = 128, 512, 512, 4
+    sms, clock = roofline.card_limits(dev)
+    rows = {}
+    for name in rk.CASES:
+        x = torch.full((ns, tile, rk.LANES), 3 if name == "i32mix" else 1.234,
+                       dtype=rk.dtype_of(name), device=dev)
+        k = rk.roofline_fused(name, x, grid, reps)
+        p = rk.roofline_plain(name, x, grid, reps)
+        torch.cuda.synchronize()
+        bits = int((k.view(torch.int32) != p.view(torch.int32)).sum())
+        err = float((k.double() - p.double()).abs().max())
+        check(bool(torch.isfinite(k.double()).all()),
+              f"roofline {name}: non-finite output")
+        rows[name] = {"bit_mismatches": bits, "max_abs_err": err}
+    print(f"[{tag}a roofline kernel vs plain] [{ns}, {tile}, 128] x {grid} "
+          f"grid steps x {reps} reps: bit mismatches "
+          + ", ".join(f"{n} {r['bit_mismatches']}" for n, r in rows.items())
+          + " (limit 0)", flush=True)
+    check(all(r["bit_mismatches"] == 0 for r in rows.values()),
+          "roofline kernel and plain are not bit-equal")
+    for name in rk.CASES:
+        rate, t = roofline.measure(name, tile, grid, reps, ns, device=dev)
+        b = roofline.bound_seconds(name, tile, grid, reps, ns, sms, clock)
+        rows[name].update(rate=rate, ms=t * 1e3, bound_ms=b * 1e3)
+    rate_c, t_c = roofline.measure("fma", tile, grid, reps, ns, device=dev,
+                                   contract=True)
+    x = torch.full((ns, tile, rk.LANES), 1.234, device=dev)
+    kc = rk.roofline_fused("fma", x, grid, reps, contract=True)
+    pc = rk.roofline_plain("fma", x, grid, reps)
+    contract_bits = int((kc.view(torch.int32) != pc.view(torch.int32)).sum())
+    plain_s = profiling.time_fn(
+        lambda v: rk.roofline_plain("fma", v, grid, reps), lambda: (x,),
+        iters=3, warmup=1, bursts=3, device=dev)["median"]
+    print(f"[{tag}b roofline rates] {sms} SMs at {clock / 1e6:.0f} MHz, on "
+          f"{smi}: " + "; ".join(
+              f"{n} {r['rate'] / 1e12:.3f} Top/s ({r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%})"
+              for n, r in rows.items())
+          + f"; fma with contraction {rate_c / 1e12:.3f} Top/s "
+          f"({t_c * 1e3:.4f} ms, {contract_bits} bits differ from plain); "
+          f"plain fma {plain_s * 1e3:.4f} ms", flush=True)
+    # the fma case's bound for the kernel table: its dispatch-bound time, or the
+    # block read and the output written at the memory rate if longer
+    ops_ms = rows["fma"]["bound_ms"]
+    bytes_ms = (nbytes(x) + nbytes(kc)) / HBM_BYTES_PER_S * 1e3
+    return {"rows": rows, "contract_rate": rate_c, "contract_ms": t_c * 1e3,
+            "contract_bit_mismatches": contract_bits,
+            "ms": rows["fma"]["ms"], "plain_ms": plain_s * 1e3,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+
+
+def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
+    """``python -m zoic_tpu_torch.bench``'s headline at the full batch,
+    iterations cut: its JSON line on a line of its own, checked, and the
+    launches of the path (the microbenchmark for the peak, the raytraced
+    kernel for the rays)."""
+    from zoic_tpu_torch import bench
+
+    buf = io.StringIO()
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    with contextlib.redirect_stdout(buf):
+        bench.main(list(BENCH_ARGS))
+    n_rt, n_roof = trace_kernel.launches, rk.launches
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(line, flush=True)
+    res = json.loads(line)
+    keys = ("metric", "value", "unit", "vs_baseline", "attempts_per_ray",
+            "vignetted_frac", "peak_tops", "mfu", "device")
+    check(all(k in res for k in keys), f"bench line lacks keys: {res}")
+    check(res["device"] == kind, f"bench ran on {res['device']}")
+    for k in ("value", "peak_tops", "mfu", "attempts_per_ray"):
+        check(math.isfinite(res[k]) and res[k] > 0, f"bench {k} = {res[k]}")
+    check(1.0 <= res["attempts_per_ray"] <= 3.0 and res["vignetted_frac"] < 0.01,
+          "bench headline attempts/ray or vignetted fraction off")
+    check(n_rt > 0 and n_roof > 0,
+          f"bench path launches: raytraced {n_rt}, roofline {n_roof}")
+    print(f"[{tag} bench] {' '.join(BENCH_ARGS)}: launches raytraced {n_rt}, "
+          f"roofline {n_roof}, thinlens {trace_kernel.thinlens_launches}, "
+          f"bokeh {bokeh_kernel.launches}", flush=True)
+    return {"launches": n_roof, "raytraced_launches": n_rt, "result": res}
 
 
 def main() -> None:
@@ -407,6 +618,9 @@ def main() -> None:
                          "False; this smoke test needs a CUDA card")
     import zoic_tpu_torch as zt
     from zoic_tpu_torch.ops import _build, bokeh_kernel, trace_kernel
+    from zoic_tpu_torch.ops import roofline_kernel
+    from zoic_tpu_torch.tools import roofline
+    from zoic_tpu_torch.utils import profiling
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -415,9 +629,10 @@ def main() -> None:
           f" cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _build.load_all(KERNELS)
-    print(f"[2 build] csrc/{{{','.join(KERNELS)}}}.cu for sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s (parallel nvcc)", flush=True)
+    _build.load_all(BUILDS)
+    print(f"[2 build] csrc/{{{','.join(KERNELS)}}}.cu for sm_90a, roofline "
+          f"also with contraction, in {time.perf_counter() - t0:.2f} s "
+          f"(parallel nvcc)", flush=True)
 
     state = zt.load_state(zt.data.state_path(), device=dev)
     print(f"[3 inputs] state {zt.data.HEADLINE} on {dev}, {state.lens.count} "
@@ -456,7 +671,19 @@ def main() -> None:
                                  "attempts", "vignetted_frac", "mismatches")}
         for name, r in rt.items()}), flush=True)
 
+    # ---- the lens compile, the microbenchmark, the bench
+    comp = compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi,
+                         "24")
+    roof = roofline_phase(roofline_kernel, roofline, profiling, dev, smi,
+                          "25")
+    bn = bench_phase(trace_kernel, bokeh_kernel, roofline_kernel, kind, "26")
+
+    from zoic_tpu_torch.bench import USEFUL_OPS_PER_RAY
+
     rep = thin["thinlens_f1.4"]
+    rt_bound = bound(head["bytes"], USEFUL_OPS_PER_RAY * BATCH)
+    thin_bound = bound(rep["bytes"], THINLENS_OPS_PER_RAY * BATCH)
+    bokeh_bound = bound(bk["bytes"], BOKEH_OPS_PER_DRAW * BATCH)
     entries = [{
         "name": "raytraced",
         "route": "cuda",
@@ -466,6 +693,9 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in rt.values()),
         "ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"],
+        "bound_ms": rt_bound[0],
+        "bound_by": rt_bound[1],
+        "library_ms": None,
         "config": "raytraced_headline",
         "configs": [name for name, r in rt.items() if r["launches"] > 0],
     }, {
@@ -477,6 +707,9 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in thin.values()),
         "ms": rep["kernel_ms"],
         "plain_ms": rep["plain_ms"],
+        "bound_ms": thin_bound[0],
+        "bound_by": thin_bound[1],
+        "library_ms": None,
         "config": "thinlens_f1.4",
     }, {
         "name": "bokeh",
@@ -488,11 +721,38 @@ def main() -> None:
         "max_abs_err": bk["max_abs_err"],
         "ms": bk["kernel_ms"],
         "plain_ms": bk["plain_ms"],
+        "bound_ms": bokeh_bound[0],
+        "bound_by": bokeh_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "roofline",
+        "route": "cuda",
+        "source": "zoic_tpu_torch/csrc/roofline.cu",
+        "replaces": "tools/roofline.py:83",
+        "launches": bn["launches"],
+        "max_abs_err": roof["max_abs_err"],
+        "ms": roof["ms"],
+        "plain_ms": roof["plain_ms"],
+        "bound_ms": roof["bound_ms"],
+        "bound_by": roof["bound_by"],
+        "library_ms": None,
+        "config": "fma",
+        "contract_ms": roof["contract_ms"],
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
           and entries[-1]["launches"] > 0,
           "the bokeh configs launched no bokeh kernel")
 
+    print("[27 compile and roofline summary] " + json.dumps({
+        "compile_s": {n: r["compile_s"] for n, r in comp.items()},
+        "mc_statics_equal": {n: r["mc_statics_equal"]
+                             for n, r in comp.items()},
+        "roofline_top_s": {n: r["rate"] / 1e12
+                           for n, r in roof["rows"].items()},
+        "roofline_bound_share": {n: r["bound_ms"] / r["ms"]
+                                 for n, r in roof["rows"].items()},
+        "fma_contract_top_s": roof["contract_rate"] / 1e12,
+    }), flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

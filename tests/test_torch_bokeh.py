@@ -160,7 +160,7 @@ def test_state_with_bokeh_round_trips(tmp_path):
     js = zt.compile_camera(cfg)
     path = str(tmp_path / "cam.npz")
     jax_state_io.save(path, js)
-    st = zpt.load_state(path)
+    st = zpt.load_state(path, device="cpu")
     assert st.lens is None
     _assert_tables_equal(st.bokeh, js.bokeh)
     assert (st.bokeh.width, st.bokeh.height) == (80, 48)

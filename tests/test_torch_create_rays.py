@@ -45,7 +45,7 @@ def _cfgs(**kw):
 @pytest.fixture(scope="module")
 def states():
     path = zpt.data.state_path()
-    return jax_state_io.load(path), zpt.load_state(path)
+    return jax_state_io.load(path), zpt.load_state(path, device="cpu")
 
 
 def _samples(n, seed=21):
@@ -157,7 +157,7 @@ def test_out_of_slice_configs_raise(case):
     tcfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
                             lens_data_path=cam.lens, **kw)
     path = zpt.data.state_path(camera)
-    js, st = jax_state_io.load(path), zpt.load_state(path)
+    js, st = jax_state_io.load(path), zpt.load_state(path, device="cpu")
     s = _samples(N, seed=33)
     key = jax.random.PRNGKey(7)
     jr, jstats = zt.create_rays(js, jcfg, *(jnp.asarray(a) for a in s), key)

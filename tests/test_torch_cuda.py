@@ -265,3 +265,99 @@ def test_thinlens_create_rays_on_cuda(cuda_dev, tmp_path):
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert int(stats.tries_total) > 0
     assert bool(torch.isfinite(rays.dir).all()) and rays.dir.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_streams", [1, 4, 8])
+@pytest.mark.parametrize("name", [
+    "fma", "mul", "add", "sqrt", "rsqrt", "div", "recip", "abs", "select",
+    "min", "floor", "i32mix", "f2i"])
+def test_roofline_kernel_matches_plain_bit_for_bit(cuda_dev, name, n_streams):
+    """Each op chain of the microbenchmark kernel, built with
+    ``--fmad=false``, against its plain version on random inputs: the
+    kernel runs the plain version's ops in its order, so every bit
+    agrees."""
+    from zoic_tpu_torch.ops import roofline_kernel as rk
+
+    rng = np.random.default_rng(n_streams)
+    shape = (n_streams, 16, 128)
+    if name == "i32mix":
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int32))
+    else:
+        x = torch.from_numpy(rng.uniform(0.1, 4.0, shape).astype(np.float32))
+    x = x.to(cuda_dev)
+    before = rk.launches
+    k = rk.roofline_fused(name, x, 3, 37)
+    assert rk.launches == before + 1
+    p = rk.roofline_plain(name, x, 3, 37)
+    torch.cuda.synchronize()
+    assert k.shape == (48, 128) and k.dtype == x.dtype
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_roofline_contracted_fma_and_refusals(cuda_dev):
+    """The build with contraction on launches and stays within a few ulp
+    of the plain chain; the wrapper refuses shapes and stream counts the
+    kernel has no instance for."""
+    from zoic_tpu_torch.ops import roofline_kernel as rk
+
+    x = torch.full((4, 8, 128), 1.234, device=cuda_dev)
+    k = rk.roofline_fused("fma", x, 2, 64, contract=True)
+    p = rk.roofline_plain("fma", x, 2, 64)
+    torch.cuda.synchronize()
+    assert float((k - p).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="n_streams"):
+        rk.roofline_fused("fma", torch.ones((3, 8, 128), device=cuda_dev), 1, 1)
+    with pytest.raises(ValueError, match="shape"):
+        rk.roofline_fused("fma", torch.ones((4, 8, 64), device=cuda_dev), 1, 1)
+    with pytest.raises(ValueError, match="int32"):
+        rk.roofline_fused("i32mix", x, 1, 1)
+
+
+@pytest.mark.cuda
+def test_compile_camera_on_cuda(cuda_dev):
+    """The naive camera compiled on the card (the default device): the
+    state lives on the card, its lens-decided statics equal the shipped
+    state's, and create_rays runs the raytraced kernel on it."""
+    cam = zpt.data.CAMERAS["raytraced_naive"]
+    cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
+                           lens_data_path=zpt.data.lens_path(cam.lens),
+                           **cam.config_kwargs())
+    st = zpt.compile_camera(cfg)
+    ref = zpt.load_state(zpt.data.state_path("raytraced_naive"))
+    assert st.device.type == "cuda" and st.lens.profile.c0.is_cuda
+    for f in ("aperture_element", "iris_identity", "elem_flags",
+              "profile_domain"):
+        assert getattr(st.lens, f) == getattr(ref.lens, f), f
+    sx, sy, lx, ly = _inputs(65_536, seed=5)
+    before = tk.launches
+    _, stats = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=11)
+    _, ref_stats = zpt.create_rays(ref, cfg, sx, sy, lx, ly, seed=11)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 2
+    att = [1 + int(s.tries_total) / 65_536 for s in (stats, ref_stats)]
+    assert abs(att[0] - att[1]) <= 0.02 * att[1]
+
+
+@pytest.mark.cuda
+def test_profiling_trace_records_the_card(cuda_dev, tmp_path):
+    """``utils.profiling.trace`` records device time of the raytraced
+    kernel (CUPTI on the card), and ``time_fn`` times it with CUDA events."""
+    from zoic_tpu_torch.utils import profiling
+
+    st = zpt.load_state(zpt.data.state_path())
+    args = _inputs(65_536, seed=6)
+
+    def call():
+        tk.raytraced_fused(st.lens, *args, st.sensor_width, SEED,
+                           max_tries=25)
+
+    t = profiling.time_fn(lambda: call(), lambda: (), iters=3)
+    assert 0 < t["median"] < 1.0
+    with profiling.trace(str(tmp_path)) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0]
+    assert any("raytraced" in n for n in names), names

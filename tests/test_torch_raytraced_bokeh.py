@@ -47,7 +47,7 @@ CAMERA = "raytraced_bokeh_image"
 @pytest.fixture(scope="module")
 def states():
     path = zpt.data.state_path(CAMERA)
-    return jax_state_io.load(path), zpt.load_state(path)
+    return jax_state_io.load(path), zpt.load_state(path, device="cpu")
 
 
 def _jax_plane_cells(n_planes, bp, b, base, count):

@@ -81,7 +81,7 @@ def _inputs(n, seed=7):
 
 def _states(camera, lens_kw):
     path = zpt.data.state_path(camera)
-    js, st = jax_state_io.load(path), zpt.load_state(path)
+    js, st = jax_state_io.load(path), zpt.load_state(path, device="cpu")
     return (dataclasses.replace(js, lens=dataclasses.replace(js.lens,
                                                              **lens_kw)),
             dataclasses.replace(st, lens=dataclasses.replace(st.lens,
@@ -159,16 +159,16 @@ def test_variant_matches_interpret_kernel(name):
 
 def test_variants_reach_their_paths():
     """The shipped states hold the variants the parity cases name."""
-    fish = zpt.load_state(zpt.data.state_path("raytraced_fisheye")).lens
+    fish = zpt.load_state(zpt.data.state_path("raytraced_fisheye"), device="cpu").lens
     assert fish.profile.kind == "harmonic" and not fish.profile_poly
     assert fish.profile.poly is not None and fish.dead_frac >= 0.5
     petz = zpt.load_state(
-        zpt.data.state_path("raytraced_petzval_f1.25_focus30")).lens
+        zpt.data.state_path("raytraced_petzval_f1.25_focus30"), device="cpu").lens
     assert petz.profile.kind == "circles" and not petz.profile_poly
     tele = zpt.load_state(
-        zpt.data.state_path("raytraced_telephoto_f5.0_focus30")).lens
+        zpt.data.state_path("raytraced_telephoto_f5.0_focus30"), device="cpu").lens
     assert tele.aperture_element == -1 and not tele.iris_identity
-    naive = zpt.load_state(zpt.data.state_path("raytraced_naive")).lens
+    naive = zpt.load_state(zpt.data.state_path("raytraced_naive"), device="cpu").lens
     assert naive.lut is None and naive.profile is not None
     v = tk.variant(fish, True, True, False)
     assert (v.use_lut, v.use_profile, v.use_poly, v.circles) == (

@@ -63,7 +63,7 @@ def test_shipped_state_matches_fresh_compile(name, tmp_path):
     assert shipped.lens.profile.kind == fresh.lens.profile.kind
     assert (shipped.bokeh is None) == (not cam.use_image)
     # the port loads the same file with the same statics
-    st = zpt.load_state(zpt.data.state_path(name))
+    st = zpt.load_state(zpt.data.state_path(name), device="cpu")
     for f in STATIC_FIELDS:
         assert getattr(st.lens, f) == getattr(fresh.lens, f), f
     assert dataclasses.is_dataclass(st) and st.lens.profile.kind == (

@@ -64,7 +64,7 @@ def _get(obj, name):
 def test_load_matches_jax_state_bit_for_bit(jax_state, tmp_path):
     path = str(tmp_path / "cam.npz")
     jax_state_io.save(path, jax_state)
-    st = torch_state_io.load(path)
+    st = torch_state_io.load(path, device="cpu")
     named, static = _named_arrays(jax_state)
     assert len(named) == len(jax.tree_util.tree_leaves(jax_state))
     for name, ref in named.items():
@@ -80,7 +80,7 @@ def test_load_matches_jax_state_bit_for_bit(jax_state, tmp_path):
 
 
 def test_committed_state_matches_fresh_compile(jax_state):
-    st = zpt.load_state(zpt.data.state_path())
+    st = zpt.load_state(zpt.data.state_path(), device="cpu")
     named, _ = _named_arrays(jax_state)
     for name, ref in named.items():
         np.testing.assert_allclose(
@@ -143,7 +143,7 @@ def test_load_refuses_other_layouts(tmp_path, change, match):
     dst = str(tmp_path / "bad.npz")
     _rewrite(zpt.data.state_path(), dst, **change)
     with pytest.raises((ValueError, NotImplementedError), match=match):
-        torch_state_io.load(dst)
+        torch_state_io.load(dst, device="cpu")
 
 
 def test_state_fields_follow_jax_field_order():
@@ -169,7 +169,9 @@ def test_state_fields_follow_jax_field_order():
 
 def test_port_imports_no_jax():
     code = (
-        "import zoic_tpu_torch, sys; "
+        "import importlib, pkgutil, sys, zoic_tpu_torch, chip_smoke; "
+        "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+        "zoic_tpu_torch.__path__, 'zoic_tpu_torch.')]; "
         "assert not any(m == 'jax' or m.startswith('jax.') "
         "for m in sys.modules), 'jax imported'; "
         "assert not any(m == 'zoic_tpu' or m.startswith('zoic_tpu.') "

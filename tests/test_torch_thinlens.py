@@ -179,7 +179,7 @@ def _create_both(jcfg, tcfg, n=N, key=42):
     jr, js = zt.create_rays(zt.compile_camera(jcfg), jcfg,
                             *(jnp.asarray(a) for a in s), key)
     seed = int(jax.random.randint(key, (), 0, 1 << 22))
-    tr, ts = zpt.create_rays(zpt.compile_camera(tcfg), tcfg,
+    tr, ts = zpt.create_rays(zpt.compile_camera(tcfg, "cpu"), tcfg,
                              *(torch.from_numpy(a) for a in s), seed=seed)
     return (jr, js), (tr, ts)
 
@@ -231,7 +231,7 @@ def test_bokeh_vignette_rates_agree(bokeh_path):
                             *(jnp.asarray(a) for a in s),
                             jax.random.PRNGKey(11))
     g = torch.Generator().manual_seed(11)
-    tr, ts = zpt.create_rays(zpt.compile_camera(tcfg), tcfg,
+    tr, ts = zpt.create_rays(zpt.compile_camera(tcfg, "cpu"), tcfg,
                              *(torch.from_numpy(a) for a in s), generator=g)
     assert int(ts.success) + int(ts.vignetted) == n
     assert abs(int(js.vignetted) - int(ts.vignetted)) < max(
@@ -250,7 +250,7 @@ def test_bokeh_vignette_rates_agree(bokeh_path):
 def test_compile_camera_matches_jax(bokeh_path):
     jcfg, tcfg = _cfgs(use_image=True, bokeh_path=bokeh_path,
                        exposure_control=-1.5, sensor_width=2.4)
-    js, st = zt.compile_camera(jcfg), zpt.compile_camera(tcfg)
+    js, st = zt.compile_camera(jcfg), zpt.compile_camera(tcfg, "cpu")
     for f in ("fov", "tan_fov", "aperture_radius", "sensor_width",
               "sensor_height", "focal_distance", "ov_distance", "ov_radius",
               "exposure_control"):
@@ -268,7 +268,7 @@ def test_generator_and_seed_paths_are_deterministic(bokeh_path):
     _, tcfg = _cfgs(use_image=True, bokeh_path=bokeh_path,
                     optical_vignetting_distance=2.0,
                     optical_vignetting_radius=0.8)
-    st = zpt.compile_camera(tcfg)
+    st = zpt.compile_camera(tcfg, "cpu")
     s = [torch.from_numpy(a) for a in _samples(500, seed=5)]
     out = [zpt.create_rays(st, tcfg, *s,
                            generator=torch.Generator().manual_seed(9))
@@ -284,8 +284,18 @@ def test_generator_and_seed_paths_are_deterministic(bokeh_path):
 
 
 def test_compile_camera_refuses_raytraced():
+    """RAYTRACED compiles from its lens file now
+    (``tests/test_torch_compile_camera.py``); what ``compile_camera``
+    refuses is a ``lens_data_path`` that names no readable file, where the
+    reference aborts the render (zoic.cpp:1639-1641)."""
+    from zoic_tpu_torch.lensfile import LensFileError
+
     cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
                            lens_data_path="double_gauss_f2.0")
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 5.*load_state"):
-        zpt.compile_camera(cfg)
+    with pytest.raises(LensFileError, match="cannot read lens data file"):
+        zpt.compile_camera(cfg, "cpu")
+
+
+def test_camera_wrapper_is_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        zpt.Camera(zpt.CameraConfig(lens_model=zpt.LensModel.THINLENS))

@@ -36,7 +36,7 @@ SEED = 12345
 @pytest.fixture(scope="module")
 def states():
     path = zpt.data.state_path()
-    return jax_state_io.load(path), zpt.load_state(path)
+    return jax_state_io.load(path), zpt.load_state(path, device="cpu")
 
 
 def _inputs(n, seed=7):
@@ -205,7 +205,7 @@ def test_wrapper_refuses_unported_variants(states):
     with pytest.raises(ValueError, match="seed"):
         tk.raytraced_fused(st.lens, z, z, z, z, st.sensor_width, 1 << 22,
                            max_tries=2)
-    naive = zpt.load_state(zpt.data.state_path("raytraced_naive"))
+    naive = zpt.load_state(zpt.data.state_path("raytraced_naive"), device="cpu")
     with pytest.raises(ValueError, match="LUT"):
         tk.raytraced_fused(naive.lens, z, z, z, z, naive.sensor_width, 0,
                            max_tries=2)

@@ -1,4 +1,9 @@
-"""Compiled camera states shipped with the port.
+"""Lens prescriptions and compiled camera states shipped with the port.
+
+``lenses/*.dat`` are byte copies of the JAX package's eight bundled lens
+designs (W. J. Smith, *Modern Lens Design*, McGraw-Hill 1992, plus lens
+patents); :data:`LENSES` and :func:`lens_path` name them, with the
+published focal lengths that double as golden values of the focal solve.
 
 Each ``.v7.npz`` here is a raytraced camera that the JAX package compiled
 (``zoic_tpu.compile_camera``, default LUT samples) and
@@ -7,24 +12,61 @@ names them: the headline camera (``double_gauss_f2.0``, focal length 5 cm,
 f/2, focus 100 cm, exit-pupil LUT and pupil pre-check on), the eight other
 raytraced cameras of ``bench.py --all`` and the headline lens compiled
 without the LUT, whose pre-check is fitted for naive first-element
-candidates.
+candidates.  :func:`zoic_tpu_torch.compile_camera` rebuilds every one of
+them from its lens file; the files stay as the parity anchor of that
+compile.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
 _HERE = os.path.dirname(__file__)
 
 
+@dataclasses.dataclass(frozen=True)
+class LensInfo:
+    name: str
+    path: str
+    efl_mm: float                 # published effective focal length
+    bfl_mm: Optional[float]       # published back focal length (if given)
+    fstop: float                  # max numerical aperture
+    elements: int                 # element rows incl. iris
+
+
+def _p(fname: str) -> str:
+    return os.path.join(_HERE, "lenses", fname)
+
+
+LENSES: Dict[str, LensInfo] = {
+    info.name: info
+    for info in [
+        LensInfo("petzval_f1.25", _p("petzval_f1.25.dat"), 99.5, 1.665, 1.25, 11),
+        LensInfo("petzval_f1.6", _p("petzval_f1.6.dat"), 100.7, 15.72, 1.6, 8),
+        LensInfo("double_gauss_f2.0", _p("double_gauss_f2.0.dat"), 100.0, None, 2.0, 11),
+        LensInfo("triplet_f2.5", _p("triplet_f2.5.dat"), 99.58, 65.48, 2.5, 7),
+        LensInfo("mori_f2.8", _p("mori_f2.8.dat"), 100.0, 129.3, 2.8, 11),
+        LensInfo("tessar_f2.8", _p("tessar_f2.8.dat"), 100.0, 79.83, 2.8, 8),
+        LensInfo("fisheye_muller_f4.0", _p("fisheye_muller_f4.0.dat"), 10.0, None, 4.0, 12),
+        LensInfo("telephoto_f5.0", _p("telephoto_f5.0.dat"), 100.0, 42.9, 5.0, 9),
+    ]
+}
+
+
+def lens_path(name: str) -> str:
+    """Path of a bundled lens prescription ``lenses/<name>.dat``."""
+    return LENSES[name].path
+
+
 class Camera(NamedTuple):
     """A shipped state and the camera config it was compiled from."""
 
     file: str
-    lens: str               # prescription in zoic_tpu/data/lenses/<lens>.dat
+    lens: str               # prescription lenses/<lens>.dat (LENSES)
     focal_length: float     # cm
     fstop: float
     focal_distance: float   # cm

@@ -19,7 +19,9 @@ from ..system import CameraState, camera_state_from_numpy, leaf_names
 FORMAT_VERSION = 7
 
 
-def load(path: str, device="cpu") -> CameraState:
+def load(path: str, device="cuda") -> CameraState:
+    """Read the state file at ``path`` onto ``device`` (the card unless the
+    caller asks for another)."""
     with np.load(path, allow_pickle=False) as z:
         static = json.loads(str(z["__static__"]))
         if static.get("format") != FORMAT_VERSION:

@@ -7,8 +7,10 @@ every shared header ``csrc/*.cuh``, so an edit to either is rebuilt and an
 unchanged tree is reused.  :func:`load_all` builds several sources at once,
 one ``nvcc`` process each.  The target is
 Hopper (``sm_90a``); fma contraction is off (``--fmad=false``) so that the
-kernels round like the eager PyTorch versions they are held against.
-There is no fallback: a failed build raises.
+kernels round like the eager PyTorch versions they are held against.  A
+source can also be built with contraction on (``fmad=True``), as a library
+of its own (``lib<name>-fmad-<hash>.so``): the op-rate microbenchmark
+measures both builds.  There is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import os
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple, Union
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -63,17 +65,21 @@ def source_digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, fmad: bool = False) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
-    if no library of the current sources exists."""
-    if name in _LIBS:
-        return _LIBS[name]
+    if no library of the current sources exists; ``fmad`` builds it with
+    fma contraction on."""
+    if (name, fmad) in _LIBS:
+        return _LIBS[(name, fmad)]
     src = os.path.join(CSRC, f"{name}.cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name)}.so")
+    tag = f"{name}-fmad" if fmad else name
+    out = os.path.join(BUILD_DIR, f"lib{tag}-{source_digest(name)}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        flags = [("--fmad=true" if fmad and f == "--fmad=false" else f)
+                 for f in NVCC_FLAGS]
+        cmd = [_nvcc(), *flags, "-o", tmp, src]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -82,12 +88,19 @@ def load(name: str) -> ctypes.CDLL:
             )
         os.replace(tmp, out)
     lib = ctypes.CDLL(out)
-    _LIBS[name] = lib
+    _LIBS[(name, fmad)] = lib
     return lib
 
 
-def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
-    """:func:`load` for several sources, their ``nvcc`` runs in parallel."""
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(load, names)))
+def load_all(
+    builds: Iterable[Union[str, Tuple[str, bool]]]
+) -> Dict[Union[str, Tuple[str, bool]], ctypes.CDLL]:
+    """:func:`load` for several builds, each a source name or a ``(name,
+    fmad)`` pair, their ``nvcc`` runs in parallel."""
+    builds = list(builds)
+
+    def one(b):
+        return load(b) if isinstance(b, str) else load(*b)
+
+    with ThreadPoolExecutor(max_workers=max(1, len(builds))) as pool:
+        return dict(zip(builds, pool.map(one, builds)))
