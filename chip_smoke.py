@@ -30,15 +30,24 @@ rays), through the entry points a user calls:
 * the bench, ``python -m zoic_tpu_torch.bench``'s headline, which
   measures its peak op rate with the microbenchmark kernel.
 
+The raytraced kernel schedules its rays dynamically (warps take whichever
+rays are ready), so it is also held to what must not depend on the
+schedule: two launches on the same inputs give the same bits, batches
+that do not fill a warp, a block or the persistent grid equal the plain
+version, and the kernel's lane-counting build (how full the warps are when
+they draw and trace, on five cameras) gives the main build's tries.
+
     python3 chip_smoke.py
 
-Phases, one line each: the device; the kernel builds (five ``nvcc`` runs
-in parallel: four sources, the microbenchmark twice); then per camera the
-run through ``create_rays`` checked for launches, finite outputs and its
-run counters, the kernel against its plain PyTorch version on the same
-inputs, and timings with CUDA events; the bokeh kernel against its plain
-version on 4,194,304 draws (bit-equal); the compiles; the microbenchmark;
-the bench's JSON line.  Then one JSON line per the kernel table, the
+Phases, one line each: the device; the kernel builds (seven ``nvcc`` runs
+in parallel: four sources, the microbenchmark twice, the two camera
+kernels' counting builds); then per camera the run through ``create_rays``
+checked for launches, finite outputs and its run counters, the kernel
+against its plain PyTorch version on the same inputs, and timings with
+CUDA events and, for the kernel's own time on the card, torch.profiler;
+the bokeh kernel against its plain version on 4,194,304 draws (bit-equal);
+ragged batches; lane use; the compiles; the microbenchmark; the bench's
+JSON line.  Then one JSON line per the kernel table, the
 card's name and power limit from nvidia-smi, and last ``{"ok": true,
 "device": ...}``.  Any failed check exits non-zero before the last line.
 It needs a CUDA card and ``nvcc``, and imports nothing of jax.
@@ -70,7 +79,13 @@ PAYLOAD_ATOL = 1e-5
 KERNELS = ("raytraced", "thinlens", "bokeh", "roofline")
 # the builds: every source with --fmad=false, the microbenchmark also with
 # fma contraction on
-BUILDS = (*KERNELS, ("roofline", True))
+COUNT_LANES = ("ZOIC_COUNT_LANES",)
+BUILDS = (*KERNELS, ("roofline", True), ("raytraced", False, COUNT_LANES),
+          ("thinlens", False, COUNT_LANES))
+# batches that do not fill a warp, a tile row or (the last, plus what
+# main() adds: just under one block per SM) the persistent grid
+RAGGED_SIZES = (1, 31, 33, 2_125)
+PROFILED_CALLS = 5
 # the card's published peaks (H100 SXM datasheet): HBM
 # bytes/s, and float32 outside the tensor cores, 67 TFLOP/s counting an FMA
 # as two; one element-op per lane per clock is half of it
@@ -198,6 +213,52 @@ def time_ms(fn, make_args, warmup=3, iters=10):
     return times
 
 
+def profiled_kernels(fn, calls: int = PROFILED_CALLS):
+    """torch.profiler's averages of the kernels (and copies) that ran on
+    the card during ``calls`` calls of ``fn()``, after one warm-up call."""
+    from zoic_tpu_torch.utils import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke", "trace")
+    with profiling.trace(log_dir) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+
+
+def device_ms(fn, match: str) -> float:
+    """The kernel's own milliseconds on the card per launch by ``fn()``:
+    the mean device time of the kernels whose name holds ``match`` (the
+    profiler may drop a record, so over the launches it kept)."""
+    events = [e for e in profiled_kernels(fn) if match in e.key]
+    check(events, f"the profiler saw no device time of a {match} kernel")
+    return (sum(e.device_time_total for e in events)
+            / sum(e.count for e in events) / 1e3)
+
+
+def create_rays_split(fn, match: str) -> str:
+    """Where one ``create_rays`` call's time on the card goes: the camera
+    kernel (name holds ``match``), everything else, and the launches."""
+    events = profiled_kernels(fn)
+    own = sum(e.device_time_total for e in events if match in e.key)
+    rest = sum(e.device_time_total for e in events if match not in e.key)
+    n = sum(e.count for e in events)
+    return (f"create_rays on the card: {match} {own / PROFILED_CALLS:.1f} "
+            f"us, other kernels {rest / PROFILED_CALLS:.1f} us, "
+            f"{n / PROFILED_CALLS:.1f} kernels per call (profiler, "
+            f"{PROFILED_CALLS} calls)")
+
+
+def bits_equal(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
 def reset_counts(trace_kernel, bokeh_kernel, roofline_kernel=None) -> None:
     trace_kernel.launches = 0
     trace_kernel.thinlens_launches = 0
@@ -294,6 +355,12 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
           f"{name}: kernel and plain disagree on tries")
     check(max_abs_err <= PAYLOAD_ATOL,
           f"{name}: kernel and plain payloads disagree")
+    # the schedule is dynamic, the result must not be
+    again = trace_kernel.raytraced_fused(*args, **kw)
+    check(bits_equal(again, (ko, kd, kt, ktir)),
+          f"{name}: two launches on the same inputs differ")
+    dev_ms = device_ms(lambda: trace_kernel.raytraced_fused(*args, **kw),
+                       "raytraced_kernel")
 
     # timings (information only), fresh draws, seed and planes per call
     tg = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -316,13 +383,18 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     timed["create_rays"] = time_ms(
         lambda *a: zt.create_rays(state, cfg, *a[:4], seed=a[4]), e2e_args)
     print(f"[{tags[2]}] median of 10 (3 warm-up), B = {BATCH}, on {smi}: "
-          + median_line(timed), flush=True)
+          + median_line(timed) + f"; kernel on the card {dev_ms:.4f} ms "
+          f"(profiler, {PROFILED_CALLS} launches); two launches bit-equal; "
+          + create_rays_split(
+              lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed),
+              "raytraced_kernel"), flush=True)
     planes = [t for t in (kw["retry_u1"], kw["retry_u2"]) if t is not None]
     return {"launches": n_launch, "bokeh_launches": n_bokeh,
             "bytes": nbytes(sx, sy, u1, u2, ko, kd, kt, ktir, *planes),
             "max_abs_err": max_abs_err, "mismatches": mismatch,
             "attempts": attempts, "vignetted_frac": vig_frac,
             "kernel_ms": statistics.median(timed["kernel"]),
+            "device_ms": dev_ms,
             "plain_ms": (statistics.median(timed["plain"])
                          if time_plain else None),
             "create_rays_ms": statistics.median(timed["create_rays"])}
@@ -420,12 +492,20 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
             lambda *a: zt.create_rays(state, cfg, *a[:4], seed=a[4],
                                       generator=tg), e2e_args),
     }
+    dev_ms = device_ms(lambda: trace_kernel.thinlens_fused(*args, **kw),
+                       "thinlens_kernel")
     print(f"[{tag}c {name} timing] median of 10 (3 warm-up), B = {BATCH}, "
-          f"on {smi}: " + median_line(timed), flush=True)
+          f"on {smi}: " + median_line(timed) + f"; kernel on the card "
+          f"{dev_ms:.4f} ms (profiler, {PROFILED_CALLS} launches); "
+          + create_rays_split(
+              lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed,
+                                     generator=g), "thinlens_kernel"),
+          flush=True)
     return {"thinlens_launches": n_thin, "bokeh_launches": n_bokeh,
             "bytes": nbytes(*args[:4], ko, kd, kt, *planes.values()),
             "max_abs_err": err,
             "kernel_ms": statistics.median(timed["kernel"]),
+            "device_ms": dev_ms,
             "plain_ms": statistics.median(timed["plain"]),
             "create_rays_ms": statistics.median(timed["create_rays"])}
 
@@ -453,15 +533,69 @@ def bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, tag):
 
     timed = {"kernel": time_ms(bokeh_kernel.sample_fused, fresh),
              "plain": time_ms(bokeh_kernel.sample_plain, fresh)}
+    dev_ms = device_ms(lambda: bokeh_kernel.sample_fused(image, u1, u2),
+                       "bokeh_kernel")
     print(f"[{tag}b bokeh timing] median of 10 (3 warm-up), B = {BATCH} "
           f"draws, on {smi}: " + median_line(timed).replace("rays/s",
-                                                            "draws/s"),
-          flush=True)
+                                                            "draws/s")
+          + f"; kernel on the card {dev_ms:.4f} ms (profiler)", flush=True)
     tables = [getattr(image, f) for f in ("cdf_row", "row_indices", "cdf_col",
                                           "dx_col", "dy_srow")]
     return {"max_abs_err": err, "bytes": nbytes(u1, u2, kdx, kdy, *tables),
             "kernel_ms": statistics.median(timed["kernel"]),
+            "device_ms": dev_ms,
             "plain_ms": statistics.median(timed["plain"])}
+
+
+def ragged_phase(zt, trace_kernel, name, state, cfg, sizes, dev, tag):
+    """The raytraced kernel against its plain version at batches that do not
+    fill a warp, a block or the persistent grid: tries and tir equal,
+    payloads of live rays within the tolerance, on inputs, seed and (with
+    image bokeh) retry planes made for each size."""
+    from zoic_tpu_torch.models import raytraced as rt_model
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    seed = (SEED + 4) % (1 << 22)
+    worst = 0.0
+    for n in sizes:
+        sx, sy, lx, ly = draws(g, n, dev)
+        u1, u2, kw = rt_model.kernel_inputs(state, cfg, lx, ly, seed)
+        args = (state.lens, sx, sy, u1, u2, state.sensor_width, seed)
+        ko, kd, kt, ktir = trace_kernel.raytraced_fused(*args, **kw)
+        po, pd, pt, ptir = trace_kernel.raytraced_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(ko.shape == (n, 3) and kt.shape == (n,),
+              f"{name}: output shapes at B = {n}")
+        check(bool((kt == pt).all()) and bool((ktir == ptir).all()),
+              f"{name}: kernel and plain disagree on tries at B = {n}")
+        live = kt <= cfg.max_tries
+        if bool(live.any()):
+            worst = max(worst, float((ko - po)[live].abs().max()),
+                        float((kd - pd)[live].abs().max()))
+        check(worst <= PAYLOAD_ATOL,
+              f"{name}: kernel and plain payloads disagree at B = {n}")
+    print(f"[{tag} {name} ragged batches] B = {', '.join(map(str, sizes))}: "
+          f"tries/tir equal to the plain version's, live max |d| "
+          f"{worst:.3e} (limit {PAYLOAD_ATOL})", flush=True)
+
+
+def lane_use_phase(dev, smi, tag):
+    """How full the warps are when they draw and trace: the camera kernels'
+    counting builds on five raytraced cameras and the thin lens with
+    vignetting, each held to the main build's tries (and tir)."""
+    from zoic_tpu_torch.tools import lane_use
+
+    seed = SEED % (1 << 22)
+    rows = {name: lane_use.raytraced_row(name, BATCH, seed, dev)
+            for name in lane_use.RAYTRACED}
+    rows["thinlens_vignette"] = lane_use.thinlens_row(BATCH, seed, dev)
+    for i, (name, r) in enumerate(rows.items()):
+        print(f"[{tag}.{i} lane use {name}] B = {BATCH}, on {smi}: "
+              + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in r.items()), flush=True)
+        check(r["equal"], f"{name}: the counting build's tries differ from "
+              "the main build's")
+    return rows
 
 
 def lens_statics(lens) -> dict:
@@ -569,13 +703,16 @@ def roofline_phase(rk, roofline, profiling, dev, smi, tag):
           + f"; fma with contraction {rate_c / 1e12:.3f} Top/s "
           f"({t_c * 1e3:.4f} ms, {contract_bits} bits differ from plain); "
           f"plain fma {plain_s * 1e3:.4f} ms", flush=True)
+    dev_ms = device_ms(lambda: rk.roofline_fused("fma", x, grid, reps),
+                       "roofline_f32")
     # the fma case's bound for the kernel table: its dispatch-bound time, or the
     # block read and the output written at the memory rate if longer
     ops_ms = rows["fma"]["bound_ms"]
     bytes_ms = (nbytes(x) + nbytes(kc)) / HBM_BYTES_PER_S * 1e3
     return {"rows": rows, "contract_rate": rate_c, "contract_ms": t_c * 1e3,
             "contract_bit_mismatches": contract_bits,
-            "ms": rows["fma"]["ms"], "plain_ms": plain_s * 1e3,
+            "ms": rows["fma"]["ms"], "device_ms": dev_ms,
+            "plain_ms": plain_s * 1e3,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
@@ -631,8 +768,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_all(BUILDS)
     print(f"[2 build] csrc/{{{','.join(KERNELS)}}}.cu for sm_90a, roofline "
-          f"also with contraction, in {time.perf_counter() - t0:.2f} s "
-          f"(parallel nvcc)", flush=True)
+          f"also with contraction, raytraced and thinlens also counting "
+          f"lanes, in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
+          flush=True)
 
     state = zt.load_state(zt.data.state_path(), device=dev)
     print(f"[3 inputs] state {zt.data.HEADLINE} on {dev}, {state.lens.count} "
@@ -667,9 +805,22 @@ def main() -> None:
             (f"{tag}a {name}", f"{tag}b {name} kernel vs plain",
              f"{tag}c {name} timing"), time_plain=time_plain)
     print("[23 raytraced summary] " + json.dumps({
-        name: {k: r[k] for k in ("kernel_ms", "plain_ms", "create_rays_ms",
-                                 "attempts", "vignetted_frac", "mismatches")}
+        name: {k: r[k] for k in ("kernel_ms", "device_ms", "plain_ms",
+                                 "create_rays_ms", "attempts",
+                                 "vignetted_frac", "mismatches")}
         for name, r in rt.items()}), flush=True)
+
+    # ---- what must not depend on the schedule: ragged batches, lane use
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = (*RAGGED_SIZES, sms * 32 * trace_kernel.WARPS_PER_BLOCK - 29)
+    ragged_phase(zt, trace_kernel, "raytraced_headline", state,
+                 raytraced_config(zt, "headline"), sizes, dev, "23a")
+    ragged_phase(zt, trace_kernel, "raytraced_bokeh_image",
+                 zt.load_state(zt.data.state_path("raytraced_bokeh_image"),
+                               device=dev),
+                 raytraced_config(zt, "raytraced_bokeh_image", bokeh_path),
+                 sizes, dev, "23b")
+    lanes = lane_use_phase(dev, smi, "23c")
 
     # ---- the lens compile, the microbenchmark, the bench
     comp = compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi,
@@ -692,6 +843,7 @@ def main() -> None:
         "launches": sum(r["launches"] for r in rt.values()),
         "max_abs_err": max(r["max_abs_err"] for r in rt.values()),
         "ms": head["kernel_ms"],
+        "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": rt_bound[0],
         "bound_by": rt_bound[1],
@@ -706,6 +858,7 @@ def main() -> None:
         "launches": sum(r["thinlens_launches"] for r in thin.values()),
         "max_abs_err": max(r["max_abs_err"] for r in thin.values()),
         "ms": rep["kernel_ms"],
+        "device_ms": rep["device_ms"],
         "plain_ms": rep["plain_ms"],
         "bound_ms": thin_bound[0],
         "bound_by": thin_bound[1],
@@ -720,6 +873,7 @@ def main() -> None:
                      + sum(r["bokeh_launches"] for r in rt.values())),
         "max_abs_err": bk["max_abs_err"],
         "ms": bk["kernel_ms"],
+        "device_ms": bk["device_ms"],
         "plain_ms": bk["plain_ms"],
         "bound_ms": bokeh_bound[0],
         "bound_by": bokeh_bound[1],
@@ -732,6 +886,7 @@ def main() -> None:
         "launches": bn["launches"],
         "max_abs_err": roof["max_abs_err"],
         "ms": roof["ms"],
+        "device_ms": roof["device_ms"],
         "plain_ms": roof["plain_ms"],
         "bound_ms": roof["bound_ms"],
         "bound_by": roof["bound_by"],
@@ -740,7 +895,7 @@ def main() -> None:
         "contract_ms": roof["contract_ms"],
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
-          and entries[-1]["launches"] > 0,
+          and entries[2]["launches"] > 0,
           "the bokeh configs launched no bokeh kernel")
 
     print("[27 compile and roofline summary] " + json.dumps({
@@ -752,6 +907,9 @@ def main() -> None:
         "roofline_bound_share": {n: r["bound_ms"] / r["ms"]
                                  for n, r in roof["rows"].items()},
         "fma_contract_top_s": roof["contract_rate"] / 1e12,
+        "lanes_per_warp_trace": {n: r["lanes_per_warp_trace"]
+                                 for n, r in lanes.items()
+                                 if "lanes_per_warp_trace" in r},
     }), flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -53,12 +53,17 @@ def _disk(n=64):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "n,max_tries", [(1, 25), (255, 0), (16 * 128 + 77, 6), (100_000, 25)]
+    "n,max_tries",
+    [(1, 25), (31, 25), (33, 25), (255, 0), (2_125, 25), (16 * 128 + 77, 6),
+     (16_867, 25), (100_000, 25), (100_000, 0)]
 )
 def test_raytraced_kernel_matches_plain(cuda_state, n, max_tries):
     """tries/tir equal but for at most 1 ray in 10,000 (a borderline
     compare under another build of a math function); payloads of rays
-    whose tries agree and are within the budget to 1e-5."""
+    whose tries agree and are within the budget to 1e-5.  Batches that do
+    not fill a warp, a block or the kernel's persistent grid, and a budget
+    of no retries; a second launch gives the first one's bits, whatever
+    order the warps took the rays in."""
     st = cuda_state
     args = _inputs(n, seed=n)
     before = tk.launches
@@ -75,6 +80,33 @@ def test_raytraced_kernel_matches_plain(cuda_state, n, max_tries):
     same = (kt == pt) & (kt <= max_tries)
     assert float((ko - po)[same].abs().max()) <= 1e-5
     assert float((kd - pd)[same].abs().max()) <= 1e-5
+    again = tk.raytraced_fused(
+        st.lens, *args, st.sensor_width, SEED, max_tries=max_tries)
+    for a, k in zip(again, (ko, kd, kt, ktir)):
+        assert torch.equal(a.view(torch.int32), k.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_raytraced_all_dead_bound_on_cuda(cuda_state):
+    """A bound that rejects the whole disk (q1 = -1 everywhere): every ray
+    takes its whole budget without a draw or a trace and keeps a zero
+    payload, as in the plain version."""
+    st = cuda_state
+    poly = st.lens.profile.poly.clone()
+    poly[1] = 0.0
+    poly[1, 0] = -1.0
+    lens = dataclasses.replace(st.lens, profile=dataclasses.replace(
+        st.lens.profile, poly=poly))
+    args = _inputs(4_133, seed=8)
+    ko, kd, kt, ktir = tk.raytraced_fused(lens, *args, st.sensor_width, SEED,
+                                          max_tries=4)
+    po, pd, pt, ptir = tk.raytraced_plain(lens, *args, st.sensor_width, SEED,
+                                          max_tries=4)
+    torch.cuda.synchronize()
+    assert bool((kt == 5).all()) and bool((ktir == 0).all())
+    assert torch.equal(kt, pt) and torch.equal(ktir, ptir)
+    assert not bool(ko.any()) and not bool(kd.any())
+    assert torch.equal(ko, po) and torch.equal(kd, pd)
 
 
 @pytest.mark.cuda
@@ -93,6 +125,43 @@ def test_create_rays_on_cuda(cuda_state):
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert bool(torch.isfinite(rays.origin).all())
     assert rays.weight.is_cuda and rays.weight.shape == (65_536,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["raytraced", "thinlens"])
+def test_create_rays_takes_columns_of_a_sample_tensor(cuda_state, model):
+    """``uv[:, 0]`` of a ``[B, 2]`` sample tensor is strided: the entry point
+    copies it once and gives the rays of the contiguous columns, bit for
+    bit.  The kernel wrappers themselves refuse a strided input."""
+    if model == "raytraced":
+        st = cuda_state
+        cfg = zpt.CameraConfig(
+            lens_model=zpt.LensModel.RAYTRACED,
+            lens_data_path="double_gauss_f2.0", focal_length=5.0, fstop=2.0,
+            focal_distance=100.0)
+    else:
+        cfg = zpt.CameraConfig(
+            lens_model=zpt.LensModel.THINLENS, focal_length=5.0, fstop=1.4,
+            focal_distance=100.0, use_dof=True,
+            optical_vignetting_distance=6.0, optical_vignetting_radius=0.35)
+        st = zpt.compile_camera(cfg, "cuda")
+    sx, sy, lx, ly = _inputs(4_133, seed=2)
+    uv, lens = torch.stack([sx, sy], 1), torch.stack([lx, ly], 1)
+    assert not uv[:, 0].is_contiguous()
+    before = tk.launches + tk.thinlens_launches
+    got, gs = zpt.create_rays(st, cfg, uv[:, 0], uv[:, 1], lens[:, 0],
+                              lens[:, 1], seed=77)
+    want, ws = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=77)
+    torch.cuda.synchronize()
+    assert tk.launches + tk.thinlens_launches == before + 2
+    assert torch.equal(got.origin, want.origin)
+    assert torch.equal(got.dir, want.dir)
+    assert torch.equal(got.weight, want.weight)
+    assert int(gs.tries_total) == int(ws.tries_total)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        tk.thinlens_fused(uv[:, 0], uv[:, 1], lens[:, 0], lens[:, 1],
+                          0.36, 1.8, 100.0, 6.0, 0.35, 9, use_dof=True,
+                          has_ov=True, max_tries=6)
 
 
 @pytest.mark.cuda
@@ -132,13 +201,14 @@ RT_VARIANTS = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16 * 128 + 77, 300_000])
+@pytest.mark.parametrize("n", [33, 16 * 128 + 77, 300_000])
 @pytest.mark.parametrize("name", list(RT_VARIANTS))
 def test_raytraced_variant_matches_plain(cuda_dev, name, n):
     """Every variant of the raytraced kernel against its plain version:
     tries/tir equal but for at most 1 ray in 10,000, payloads of agreeing
-    live rays within 1e-5.  Presampled variants read retry planes of an
-    eighth of the batch, so tiles share plane blocks at 300,000 rays."""
+    live rays within 1e-5, and a second launch bit-equal to the first.
+    Presampled variants read retry planes of an eighth of the batch, so
+    tiles share plane blocks at 300,000 rays."""
     camera, flags, lens_kw = RT_VARIANTS[name]
     st = zpt.load_state(zpt.data.state_path(camera), device=cuda_dev)
     lens = dataclasses.replace(st.lens, **lens_kw)
@@ -167,6 +237,9 @@ def test_raytraced_variant_matches_plain(cuda_dev, name, n):
     assert int(same.sum()) > 0
     assert float((ko - po)[same].abs().max()) <= 1e-5
     assert float((kd - pd)[same].abs().max()) <= 1e-5
+    again = tk.raytraced_fused(lens, *args, st.sensor_width, SEED, **kw)
+    for a, k in zip(again, (ko, kd, kt, ktir)):
+        assert torch.equal(a.view(torch.int32), k.view(torch.int32))
 
 
 THIN_BRANCHES = {
@@ -213,6 +286,41 @@ def test_thinlens_kernel_matches_plain(cuda_dev, branch, n):
     assert float((kd - pd)[same].abs().max()) <= 1e-5
     if flags["has_ov"]:
         assert int(kt.max()) == 26
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("as_numbers", [False, True])
+def test_thinlens_scalars_by_value_on_cuda(cuda_dev, as_numbers):
+    """The camera scalars reach the kernel by value: a compiled state's
+    0-d tensors (read once, kept beside the state) and plain numbers give
+    the plain version's bits, and a state whose field is written in place
+    is read again."""
+    cfg = zpt.CameraConfig(
+        lens_model=zpt.LensModel.THINLENS, focal_length=5.0, fstop=1.4,
+        focal_distance=100.0, use_dof=True,
+        optical_vignetting_distance=6.0, optical_vignetting_radius=0.35)
+    st = zpt.compile_camera(cfg, cuda_dev)
+    fields = [st.tan_fov, st.aperture_radius, st.focal_distance,
+              st.ov_distance, st.ov_radius]
+    if as_numbers:
+        fields = [float(f) for f in fields]
+    args = _inputs(50_000, seed=9)
+    kw = dict(use_dof=True, has_ov=True, max_tries=25)
+    for focus in (None, 40.0):
+        if focus is not None:
+            if as_numbers:
+                fields[2] = focus
+            else:
+                st.focal_distance.fill_(focus)
+        got = tk.thinlens_fused(*args, *fields, SEED, **kw)
+        want = tk.thinlens_plain(*args, *fields, SEED, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.thinlens_fused(args[0], args[1], args[2],
+                          torch.zeros(100_000, device=cuda_dev)[::2],
+                          *fields, SEED, **kw)
 
 
 @pytest.mark.cuda

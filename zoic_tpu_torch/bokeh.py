@@ -133,5 +133,7 @@ def load(path: str, trace=None) -> BokehImage:
 def sample(image: BokehImage, u_row: Tensor,
            u_col: Tensor) -> Tuple[Tensor, Tensor]:
     """Batched ``bokehSample`` (zoic.cpp:420-485): uniform pairs in [0, 1)
-    to [-1, 1]^2 aperture offsets distributed as the image."""
-    return bokeh_kernel.sample_fused(image, u_row, u_col)
+    to [-1, 1]^2 aperture offsets distributed as the image.  Strided inputs
+    are copied once here: the kernel reads its inputs in place."""
+    return bokeh_kernel.sample_fused(image, u_row.contiguous(),
+                                     u_col.contiguous())

@@ -202,10 +202,12 @@ def create_rays(
     ``sx, sy`` span [-1, 1] and ``lensx, lensy`` [0, 1], all float32 on the
     state's device.  The retry draws are keyed by ``seed``, an int in
     ``[0, 2**22)``, or by one drawn from ``generator``; one of the two is
-    required.  Returns ``(RayBatch, RayStats)``."""
+    required.  Strided inputs (columns of a ``[B, 2]`` sample tensor) are
+    copied once here: the kernels read theirs in place.  Returns
+    ``(RayBatch, RayStats)``."""
     dev = state.device
     sx, sy, lensx, lensy = (
-        torch.as_tensor(a, dtype=torch.float32, device=dev)
+        torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
         for a in (sx, sy, lensx, lensy)
     )
     if config.lens_model is LensModel.THINLENS:

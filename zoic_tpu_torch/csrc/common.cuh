@@ -78,6 +78,18 @@ __device__ __forceinline__ float hash_uniform(uint32_t id, uint32_t seed,
   return (float)(int32_t)(h >> 8) * 5.9604644775390625e-8f;  // 2^-24
 }
 
+#ifdef ZOIC_COUNT_LANES
+// Lane-use counting (the kernels' counting builds): the first active lane of
+// the converged group adds the group's lanes to c[0] and one to c[1].
+__device__ __forceinline__ void count_lanes(unsigned long long* c) {
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == __ffs(m) - 1) {
+    atomicAdd(&c[0], (unsigned long long)__popc(m));
+    atomicAdd(&c[1], 1ull);
+  }
+}
+#endif
+
 constexpr int kLanes = 128;
 
 // Flat index into [P, bp] retry planes of presampled draw idx for ray i:

@@ -22,7 +22,10 @@
 //
 // What bounds it on this card: memory, 16 B read and 28 B written per ray
 // with ~40 float operations per attempt; a warp with a vignetted ray runs
-// until that ray's last round, so retry divergence is its known cost.
+// until that ray's last round, so retry divergence is its known cost.  The
+// five camera scalars are kernel arguments by value: a launch reads no
+// table.  Built with ZOIC_COUNT_LANES the kernel also counts the lanes and
+// warps that enter an attempt (lane use under vignetting retries).
 //
 // Rounding: built with --fmad=false and IEEE division, rsqrtf where the
 // plain version uses torch.rsqrt, in the same order of operations as
@@ -39,6 +42,15 @@ using namespace zoic;
 
 constexpr int kBlock = 256;
 
+#ifdef ZOIC_COUNT_LANES
+// Lane-use counters of the counting build: [0] lanes and [1] warps that
+// entered an aperture attempt.
+__device__ unsigned long long g_counts[2];
+#define COUNT_LANES() count_lanes(g_counts)
+#else
+#define COUNT_LANES()
+#endif
+
 struct Attempt {
   float lx, ly, dx, dy, dz;
   bool ok;
@@ -48,6 +60,7 @@ struct Attempt {
 __device__ __forceinline__ Attempt attempt(float lx, float ly, float fx,
                                            float fy, float fz, float ap,
                                            float ovd, float thr, bool has_ov) {
+  COUNT_LANES();
   Attempt a;
   a.lx = lx * ap;
   a.ly = ly * ap;
@@ -71,16 +84,14 @@ __global__ void __launch_bounds__(kBlock)
 thinlens_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
                 const float* __restrict__ u1, const float* __restrict__ u2,
                 const float* __restrict__ bu1, const float* __restrict__ bu2,
-                const float* __restrict__ scal, float* __restrict__ origin,
-                float* __restrict__ dir, int* __restrict__ tries_out, int B,
-                bool use_dof, bool has_ov, bool presampled, int max_total,
+                float tan_fov, float ap, float focal, float ovd, float ovr,
+                float* __restrict__ origin, float* __restrict__ dir,
+                int* __restrict__ tries_out, int B, bool use_dof,
+                bool has_ov, bool presampled, int max_total,
                 int seed, int n_planes, int bp, int tile_rows,
                 int plane_tiles, bool reuse) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  const float tan_fov = scal[0], ap = scal[1], focal = scal[2];
-  const float ovd = scal[3], ovr = scal[4];
-
   const float px = sx[i] * tan_fov;
   const float py = sy[i] * tan_fov;
   const float inv = rsqrtf(px * px + py * py + 1.0f);
@@ -140,12 +151,13 @@ thinlens_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() as an int (0 = success).
-// scal = [tan_fov, aperture_radius, focal_distance, ov_distance, ov_radius]
-// on the device.  bu1/bu2 ([n_planes, bp]) are read only when presampled and
-// has_ov are both set.
+// The camera scalars (tan_fov, aperture_radius, focal_distance, ov_distance,
+// ov_radius) come by value.  bu1/bu2 ([n_planes, bp]) are read only when
+// presampled and has_ov are both set.
 extern "C" int zoic_thinlens_launch(
     const float* sx, const float* sy, const float* u1, const float* u2,
-    const float* bu1, const float* bu2, const float* scal, float* origin,
+    const float* bu1, const float* bu2, float tan_fov, float aperture_radius,
+    float focal_distance, float ov_distance, float ov_radius, float* origin,
     float* dir, int* tries, int B, int use_dof, int has_ov, int presampled,
     int max_total, int seed, int n_planes, int bp, int tile_rows,
     int plane_tiles, int reuse, void* stream) {
@@ -157,8 +169,24 @@ extern "C" int zoic_thinlens_launch(
     return (int)cudaErrorInvalidValue;
   const int grid = (B + kBlock - 1) / kBlock;
   thinlens_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      sx, sy, u1, u2, bu1, bu2, scal, origin, dir, tries, B, use_dof != 0,
+      sx, sy, u1, u2, bu1, bu2, tan_fov, aperture_radius, focal_distance,
+      ov_distance, ov_radius, origin, dir, tries, B, use_dof != 0,
       has_ov != 0, presampled != 0, max_total, seed, n_planes, bp, tile_rows,
       plane_tiles, reuse != 0);
   return (int)cudaGetLastError();
 }
+
+#ifdef ZOIC_COUNT_LANES
+// The counting build's counters: zero them, or copy them to the host after
+// the launches on every stream have finished.
+extern "C" int zoic_thinlens_counts_reset() {
+  const unsigned long long zero[2] = {0, 0};
+  return (int)cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
+}
+
+extern "C" int zoic_thinlens_counts_read(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(out, g_counts, 2 * sizeof(*out));
+}
+#endif

@@ -10,7 +10,12 @@ Hopper (``sm_90a``); fma contraction is off (``--fmad=false``) so that the
 kernels round like the eager PyTorch versions they are held against.  A
 source can also be built with contraction on (``fmad=True``), as a library
 of its own (``lib<name>-fmad-<hash>.so``): the op-rate microbenchmark
-measures both builds.  There is no fallback: a failed build raises.
+measures both builds.  Preprocessor ``defines`` make a library of their own
+too (``lib<name>-<define>-<hash>.so``): the camera kernels' lane-counting
+builds (``ZOIC_COUNT_LANES``).  Every build runs with ``-Xptxas -v``; what
+it reports (registers, shared memory, spills per kernel) is kept beside the
+library as ``<library>.ptxas.txt``.  There is no fallback: a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import os
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Tuple, Union
+from typing import Dict, Iterable, Sequence, Union
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -31,7 +36,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zoic_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LIBS: dict = {}
@@ -65,20 +70,29 @@ def source_digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-def load(name: str, fmad: bool = False) -> ctypes.CDLL:
+def library_path(name: str, fmad: bool = False,
+                 defines: Sequence[str] = ()) -> str:
+    """Where the library of ``csrc/<name>.cu`` with these options is built."""
+    tag = "-".join([name, *(["fmad"] if fmad else []),
+                    *(d.lower() for d in defines)])
+    return os.path.join(BUILD_DIR, f"lib{tag}-{source_digest(name)}.so")
+
+
+def load(name: str, fmad: bool = False,
+         defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
     if no library of the current sources exists; ``fmad`` builds it with
-    fma contraction on."""
-    if (name, fmad) in _LIBS:
-        return _LIBS[(name, fmad)]
+    fma contraction on, ``defines`` with those preprocessor names set."""
+    key = (name, fmad, tuple(defines))
+    if key in _LIBS:
+        return _LIBS[key]
     src = os.path.join(CSRC, f"{name}.cu")
-    tag = f"{name}-fmad" if fmad else name
-    out = os.path.join(BUILD_DIR, f"lib{tag}-{source_digest(name)}.so")
+    out = library_path(name, fmad, defines)
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         flags = [("--fmad=true" if fmad and f == "--fmad=false" else f)
-                 for f in NVCC_FLAGS]
+                 for f in NVCC_FLAGS] + [f"-D{d}" for d in defines]
         cmd = [_nvcc(), *flags, "-o", tmp, src]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -86,17 +100,20 @@ def load(name: str, fmad: bool = False) -> ctypes.CDLL:
                 f"nvcc failed on {src} (rc {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
+        with open(f"{out}.ptxas.txt", "w") as f:
+            f.write(proc.stderr)
         os.replace(tmp, out)
     lib = ctypes.CDLL(out)
-    _LIBS[(name, fmad)] = lib
+    _LIBS[key] = lib
     return lib
 
 
 def load_all(
-    builds: Iterable[Union[str, Tuple[str, bool]]]
-) -> Dict[Union[str, Tuple[str, bool]], ctypes.CDLL]:
-    """:func:`load` for several builds, each a source name or a ``(name,
-    fmad)`` pair, their ``nvcc`` runs in parallel."""
+    builds: Iterable[Union[str, tuple]]
+) -> Dict[Union[str, tuple], ctypes.CDLL]:
+    """:func:`load` for several builds, each a source name or a tuple of
+    :func:`load`'s arguments (``(name, fmad)``, ``(name, fmad, defines)``),
+    their ``nvcc`` runs in parallel."""
     builds = list(builds)
 
     def one(b):

@@ -1,0 +1,110 @@
+"""What every kernel wrapper of the port does around its launch: bind the
+library's C function once, check the flat inputs, allocate the outputs,
+launch on PyTorch's current stream and raise on a launch error.
+
+The wrappers (:func:`ops.trace_kernel.raytraced_fused`,
+:func:`ops.trace_kernel.thinlens_fused`,
+:func:`ops.bokeh_kernel.sample_fused`) keep what is theirs: the tables of
+their state, their arguments and their launch counter.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from . import _build
+
+Tensor = torch.Tensor
+
+# the lane-counting builds of the camera kernels (csrc/common.cuh)
+COUNT_DEFINE = "ZOIC_COUNT_LANES"
+
+_BOUND: dict = {}
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream's handle as an int, without building a Stream
+    object (tens of microseconds per launch)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def bind(name: str, symbol: str, argtypes: Sequence, *,
+         defines: Sequence[str] = ()):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (built at first use)
+    with its argument types set; bound once per library and symbol.  The
+    function returns a CUDA error code as an int."""
+    key = (name, symbol, tuple(defines))
+    fn = _BOUND.get(key)
+    if fn is None:
+        fn = getattr(_build.load(name, defines=defines), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
+    return fn
+
+
+def check_flat(named: Sequence[Tuple[str, Tensor]],
+               dtype: torch.dtype = torch.float32) -> Tuple[int, torch.device]:
+    """Hold the flat ``[B]`` inputs of a kernel to one device (the first
+    one's), ``dtype``, one shape and contiguity; returns ``(B, device)``.
+    A kernel reads its inputs in place, so nothing is copied here."""
+    first = named[0][1]
+    b, dev = first.shape[0], first.device
+    for name, t in named:
+        if t.device != dev or t.dtype != dtype or t.shape != (b,):
+            raise ValueError(
+                f"{name} must be {str(dtype).replace('torch.', '')} of shape "
+                f"({b},) on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous, got stride {t.stride()}; pass "
+                f"{name}.contiguous()"
+            )
+    return b, dev
+
+
+def empty(dev: torch.device, *specs) -> Tuple[Tensor, ...]:
+    """One uninitialised output on ``dev`` per ``(shape, dtype)``: each owns
+    its storage."""
+    return tuple(torch.empty(shape, dtype=dtype, device=dev)
+                 for shape, dtype in specs)
+
+
+def launch(fn, what: str, dev: torch.device, *args) -> None:
+    """Call the bound C function ``fn(*args, stream)`` on ``dev``'s current
+    stream; the device context is entered only when ``dev`` is not the
+    current device.  Raises on a refused launch: there is no fallback."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    if index == current:
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def read_counts(name: str, n: int) -> Tuple[int, ...]:
+    """The ``n`` lane-use counters of ``csrc/<name>.cu``'s counting build,
+    read after the card has finished."""
+    out = (ctypes.c_ulonglong * n)()
+    fn = bind(name, f"zoic_{name}_counts_read", [ctypes.c_void_p],
+              defines=(COUNT_DEFINE,))
+    err = fn(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{name} counters: CUDA error {err}")
+    return tuple(int(v) for v in out)
+
+
+def reset_counts(name: str) -> None:
+    """Zero the lane-use counters of ``csrc/<name>.cu``'s counting build."""
+    err = bind(name, f"zoic_{name}_counts_reset", [],
+               defines=(COUNT_DEFINE,))()
+    if err != 0:
+        raise RuntimeError(f"{name} counters: CUDA error {err}")

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from ..system import BokehImage
-from . import _build
+from . import _launch
 
 Tensor = torch.Tensor
 
@@ -59,15 +59,7 @@ def sample_plain(image: BokehImage, u_row: Tensor,
     return dx, dy
 
 
-def _kernel_lib():
-    lib = _build.load("bokeh")
-    fn = lib.zoic_bokeh_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 # (id(image), device) -> (weakref(image), tables): contiguous device copies
@@ -112,30 +104,17 @@ def sample_fused(image: BokehImage, u_row: Tensor,
         return sample_plain(image, u_row, u_col)
     if u_row.device.type != "cuda":
         raise ValueError(f"unsupported device {u_row.device}")
-    b = u_row.shape[0]
-    dev = u_row.device
-    for name, t in (("u_row", u_row), ("u_col", u_col)):
-        if t.device != dev or t.dtype != torch.float32 or t.shape != (b,):
-            raise ValueError(
-                f"{name} must be float32 of shape ({b},) on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    b, dev = _launch.check_flat((("u_row", u_row), ("u_col", u_col)))
     cdf_row, row_idx, cdf_col, dx_col, dy_srow = _kernel_tables(image, dev)
-    u1, u2 = u_row.contiguous(), u_col.contiguous()
-    dx = torch.empty((b,), dtype=torch.float32, device=dev)
-    dy = torch.empty((b,), dtype=torch.float32, device=dev)
+    dx, dy = _launch.empty(dev, ((b,), torch.float32), ((b,), torch.float32))
     if b == 0:
         return dx, dy
-    fn = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            u1.data_ptr(), u2.data_ptr(), cdf_row.data_ptr(),
-            row_idx.data_ptr(), cdf_col.data_ptr(), dx_col.data_ptr(),
-            dy_srow.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-            b, image.height, image.width, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bokeh kernel launch failed: CUDA error {err}")
+    _launch.launch(
+        _launch.bind("bokeh", "zoic_bokeh_launch", _ARGTYPES), "bokeh", dev,
+        u_row.data_ptr(), u_col.data_ptr(), cdf_row.data_ptr(),
+        row_idx.data_ptr(), cdf_col.data_ptr(), dx_col.data_ptr(),
+        dy_srow.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        b, image.height, image.width,
+    )
     launches += 1
     return dx, dy

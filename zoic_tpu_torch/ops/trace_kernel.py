@@ -17,11 +17,15 @@ hash keyed by ``(ray id, seed, try)``, or, presampled, from the retry
 planes at the cell :func:`raytraced_plane_index` gives the ray, the draw
 index and the batch: the TPU kernel's tile-position map of its whole-tile
 loop (``compact=False``), written out.  Either way a ray's draws are a
-function of the ray alone, which is why a GPU thread per ray gives the
-TPU's per-ray result.
+function of the ray alone, which is why a GPU kernel may run a ray's draws
+and traces on whichever lane is free and still give the TPU's per-ray
+result.
 
-:func:`raytraced_fused` launches ``csrc/raytraced.cu`` for CUDA tensors
-and runs :func:`raytraced_plain` for CPU tensors.  :func:`raytraced_plain`
+:func:`raytraced_fused` launches ``csrc/raytraced.cu`` for CUDA tensors (a
+persistent grid of warps that take tiles of 32 rays and keep two rings of
+rays, before a draw and before a trace, so that 32 lanes draw or trace
+together; :func:`persistent_grid` sizes it) and runs
+:func:`raytraced_plain` for CPU tensors.  :func:`raytraced_plain`
 runs the same rounds over the pending rays as tensor ops, in the kernel's
 order of operations.
 
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from ..system import LensSystem
-from . import _build
+from . import _launch
 
 Tensor = torch.Tensor
 
@@ -54,7 +58,7 @@ launches = 0
 # launches of the CUDA kernel by thinlens_fused (plain CPU runs not counted)
 thinlens_launches = 0
 
-# shared-memory table capacities of csrc/raytraced.cu
+# table capacities of csrc/raytraced.cu (its parameter and shared memory)
 MAX_ELEMS, MAX_KEYS, MAX_COEF = 64, 128, 32
 
 SALT_U1, SALT_U2 = 0x11111111, 0x22222222
@@ -653,40 +657,55 @@ def raytraced_plain(
     return origin, direction, tries, tir
 
 
-def _kernel_lib():
-    lib = _build.load("raytraced")
-    fn = lib.zoic_raytraced_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 14 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_input(name: str, t: Tensor, b: int, device) -> None:
-    if t.device != device or t.dtype != torch.float32 or t.shape != (b,):
-        raise ValueError(
-            f"{name} must be float32 of shape ({b},) on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-
+_RAYTRACED_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p])
 
 # (id(lens), id(sensor_width), device, use_lut, use_profile) ->
 # (weakref(lens), weakref(sensor_width), tables): the kernel's tables are
-# constants of a compiled state, so they are packed once per state and
-# variant, not once per call
+# constants of a compiled state, so they are packed (and the four that
+# travel in the kernel's parameter read back to the host) once per state
+# and variant, not once per call
 _TABLES: dict = {}
 
-# bits of the kernel's variant word (csrc/raytraced.cu)
-_V_LUT, _V_PROFILE, _V_POLY, _V_CIRCLES, _V_PRESAMPLED, _V_STATIC = (
-    1, 2, 4, 8, 16, 32)
+# bits of the kernel's variant word (csrc/raytraced.cu), one kernel
+# instance per word
+_V_LUT, _V_PROFILE, _V_POLY, _V_CIRCLES, _V_PRESAMPLED = 1, 2, 4, 8, 16
+
+# threads of a block of csrc/raytraced.cu (kBlock) in warps: each warp
+# works through tiles of 32 rays
+WARPS_PER_BLOCK = 4
+
+
+def variant_word(v: Variant, presampled: bool) -> int:
+    """The word of bits that selects the kernel's template instance.  The
+    element flags are no bit of it: the kernel reads them from its element
+    table (:func:`_kernel_tables` writes a state's static flags there)."""
+    return ((_V_LUT if v.use_lut else 0) | (_V_PROFILE if v.use_profile else 0)
+            | (_V_POLY if v.use_poly else 0)
+            | (_V_CIRCLES if v.circles else 0)
+            | (_V_PRESAMPLED if presampled else 0))
+
+
+def persistent_grid(b: int, sm_count: int, blocks_per_sm: int) -> int:
+    """Blocks of the raytraced kernel's persistent grid for ``b`` rays: as
+    many as the card holds at once (``sm_count * blocks_per_sm``), but no
+    more than there are tiles of 32 rays to give each warp one, and at
+    least one."""
+    tiles = -(-b // 32)
+    work = -(-tiles // WARPS_PER_BLOCK)
+    return max(1, min(sm_count * blocks_per_sm, work))
 
 
 def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
-    """``(elems, flags, shap, prof, scal)`` on ``dev`` for the kernel.  The
-    seed and batch slots of ``scal`` hold 0: the kernel takes both as int
-    arguments."""
+    """``(elems, shap, prof, scal, pointers)`` for the kernel: ``shap`` a
+    tensor on ``dev``, the others contiguous numpy arrays on the host, which
+    the launch copies into the kernel's parameter; ``pointers`` the four
+    addresses in that order.  The seed and batch slots of ``scal`` hold 0:
+    the kernel takes both as int arguments.  The kernel reads the root's
+    sign and the TIR threshold from the element table, so a state's static
+    element flags are written into those two columns: bit 1 as a sign of
+    -1, bit 0 as a threshold of 1 (else +inf), which select the same root
+    and gate the same test as the flag form of :func:`_trace`."""
     key = (id(lens), id(sensor_width), str(dev), v.use_lut, v.use_profile)
     hit = _TABLES.get(key)
     if hit is not None and hit[0]() is lens and hit[1]() is sensor_width:
@@ -699,17 +718,89 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
             f"coefficients) exceed the kernel's ({MAX_ELEMS}, {MAX_KEYS}, "
             f"{MAX_COEF})"
         )
-    flags = torch.tensor(v.flags or (0,) * n_elems, dtype=torch.int32,
-                         device=dev)
-    elems, shap, prof, scal = (t.to(dev, torch.float32).contiguous()
-                               for t in (elems, shap, prof, scal))
-    tables = (elems, flags, shap, prof, scal)
+    elems, prof, scal = (
+        np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
+        for t in (elems, prof, scal))
+    if v.flags:
+        flags = np.asarray(v.flags)
+        elems[:, 6] = np.where(flags & 1, 1.0, np.inf)
+        elems[:, 7] = np.where(flags & 2, -1.0, 1.0)
+    shap = shap.to(dev, torch.float32).contiguous()
+    tables = (elems, shap, prof, scal,
+              (elems.ctypes.data, shap.data_ptr(), prof.ctypes.data,
+               scal.ctypes.data))
     if isinstance(sensor_width, Tensor):
         for k in [k for k, val in _TABLES.items()
                   if val[0]() is None or val[1]() is None]:
             del _TABLES[k]
         _TABLES[key] = (weakref.ref(lens), weakref.ref(sensor_width), tables)
     return tables
+
+
+# (variant word, counting build, device index) -> (SMs, blocks per SM)
+_BLOCKS_PER_SM: dict = {}
+
+
+def _grid(b: int, word: int, count: bool, dev) -> int:
+    """The persistent grid for ``b`` rays on ``dev``: the instance's blocks
+    per SM, asked of the library once, times the card's SMs."""
+    defines = (_launch.COUNT_DEFINE,) if count else ()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (word, count, index)
+    hit = _BLOCKS_PER_SM.get(key)
+    if hit is None:
+        fn = _launch.bind("raytraced", "zoic_raytraced_blocks_per_sm",
+                          [ctypes.c_int], defines=defines)
+        with torch.cuda.device(index):
+            per_sm = fn(word)
+        if per_sm < 1:
+            raise RuntimeError(
+                f"raytraced kernel: no instance for variant word {word}, or "
+                f"its occupancy query failed ({per_sm})")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        hit = _BLOCKS_PER_SM[key] = (sms, per_sm)
+    return persistent_grid(b, *hit)
+
+
+def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
+                      max_tries, use_lut, use_profile, presampled, retry_u1,
+                      retry_u2, count=False):
+    """Check, allocate and launch ``csrc/raytraced.cu`` (its lane-counting
+    build with ``count``); returns ``(origin, dir, tries, tir)``."""
+    seed = _check_seed(seed)
+    b, dev = _launch.check_flat(
+        (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
+    v = variant(lens, use_lut, use_profile, presampled)
+    elems, shap, prof, _, pointers = _kernel_tables(lens, sensor_width, dev,
+                                                    v)
+    word = variant_word(v, presampled)
+    bu1 = bu2 = None
+    n_planes = bp = tile_rows = plane_tiles = reuse = 0
+    if presampled:
+        bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
+        n_planes, bp = bu1.shape
+        tile_rows, plane_tiles, reuse = retry_plane_layout(
+            b, bp, DEF_RT_TILE_ROWS)
+    origin, direction, tries, tir = _launch.empty(
+        dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
+        ((b,), torch.int32), ((b,), torch.int32))
+    if b == 0:
+        return origin, direction, tries, tir
+    fn = _launch.bind("raytraced", "zoic_raytraced_launch",
+                      _RAYTRACED_ARGTYPES,
+                      defines=(_launch.COUNT_DEFINE,) if count else ())
+    _launch.launch(
+        fn, "raytraced", dev,
+        sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+        bu1.data_ptr() if bu1 is not None else None,
+        bu2.data_ptr() if bu2 is not None else None,
+        *pointers, origin.data_ptr(), direction.data_ptr(), tries.data_ptr(),
+        tir.data_ptr(),
+        b, elems.shape[0], shap.shape[0], prof.shape[1], v.iris_idx,
+        max_tries + 1, seed, word, PRECHECK_DRAWS, n_planes, bp,
+        tile_rows, plane_tiles, int(reuse), _grid(b, word, count, dev),
+    )
+    return origin, direction, tries, tir
 
 
 def raytraced_fused(
@@ -736,52 +827,31 @@ def raytraced_fused(
         return raytraced_plain(lens, sx, sy, u1, u2, sensor_width, seed, **kw)
     if sx.device.type != "cuda":
         raise ValueError(f"unsupported device {sx.device}")
-    seed = _check_seed(seed)
-    b = sx.shape[0]
-    dev = sx.device
-    for name, t in (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)):
-        _check_input(name, t, b, dev)
-    v = variant(lens, use_lut, use_profile, presampled)
-    elems, flags, shap, prof, scal = _kernel_tables(lens, sensor_width, dev,
-                                                    v)
-    bits = ((_V_LUT if v.use_lut else 0) | (_V_PROFILE if v.use_profile else 0)
-            | (_V_POLY if v.use_poly else 0)
-            | (_V_CIRCLES if v.circles else 0)
-            | (_V_PRESAMPLED if presampled else 0)
-            | (_V_STATIC if v.flags else 0))
-    bu1 = bu2 = None
-    n_planes = bp = tile_rows = plane_tiles = reuse = 0
-    if presampled:
-        bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
-        n_planes, bp = bu1.shape
-        tile_rows, plane_tiles, reuse = retry_plane_layout(
-            b, bp, DEF_RT_TILE_ROWS)
-    ins = [t.contiguous() for t in (sx, sy, u1, u2)]
-    origin = torch.empty((b, 3), dtype=torch.float32, device=dev)
-    direction = torch.empty((b, 3), dtype=torch.float32, device=dev)
-    tries = torch.empty((b,), dtype=torch.int32, device=dev)
-    tir = torch.empty((b,), dtype=torch.int32, device=dev)
-    if b == 0:
-        return origin, direction, tries, tir
-    fn = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            *(t.data_ptr() for t in ins),
-            bu1.data_ptr() if bu1 is not None else None,
-            bu2.data_ptr() if bu2 is not None else None,
-            elems.data_ptr(), flags.data_ptr(), shap.data_ptr(),
-            prof.data_ptr(), scal.data_ptr(),
-            origin.data_ptr(), direction.data_ptr(), tries.data_ptr(),
-            tir.data_ptr(),
-            b, elems.shape[0], shap.shape[0], prof.shape[1], v.iris_idx,
-            max_tries + 1, seed, bits, PRECHECK_DRAWS, n_planes, bp,
-            tile_rows, plane_tiles, int(reuse), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"raytraced kernel launch failed: CUDA error {err}")
-    launches += 1
-    return origin, direction, tries, tir
+    out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, **kw)
+    if sx.shape[0] > 0:
+        launches += 1
+    return out
+
+
+def raytraced_lane_use(
+    lens: LensSystem, sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor,
+    sensor_width, seed: int, **kw,
+) -> Tuple[Tuple[Tensor, Tensor, Tensor, Tensor], dict]:
+    """:func:`raytraced_fused` through the kernel's lane-counting build, on
+    CUDA tensors: its outputs, and how full the warps were.  ``traces`` and
+    ``draws`` count the lanes that entered an element-stack trace or took
+    an aperture draw (the caller's included), ``warp_traces`` and
+    ``warp_draws`` the converged groups of a warp that did: lanes over
+    groups is the mean number of active lanes."""
+    kw = dict(dict(use_lut=True, use_profile=True, presampled=False,
+                   retry_u1=None, retry_u2=None), **kw)
+    _launch.reset_counts("raytraced")
+    out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed,
+                            count=True, **kw)
+    traces, warp_traces, draws, warp_draws = _launch.read_counts(
+        "raytraced", 4)
+    return out, {"traces": traces, "warp_traces": warp_traces,
+                 "draws": draws, "warp_draws": warp_draws}
 
 
 # -------------------------------------------------------------- thin lens
@@ -870,15 +940,72 @@ def thinlens_plain(
             tries)
 
 
-def _thinlens_lib():
-    lib = _build.load("thinlens")
-    fn = lib.zoic_thinlens_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+# id of the tan_fov tensor -> (weak references to the five scalar tensors,
+# their versions, the five floats): the thin-lens kernel takes its camera
+# scalars by value, and reading a 0-d tensor on the card waits for the card,
+# so a state's scalars are read once and kept until the state goes
+_THIN_SCALARS: dict = {}
+
+
+def thinlens_scalars(tan_fov, aperture_radius, focal_distance, ov_distance,
+                     ov_radius) -> Tuple[float, ...]:
+    """The five camera scalars as Python floats rounded to float32
+    (:func:`_f32_scalar`, as :func:`thinlens_plain` rounds them).  Given a
+    state's tensors, the floats are kept beside them: later calls read
+    nothing from the card, a tensor that was replaced or written in place
+    is read again, and the entry goes when the state does."""
+    vals = (tan_fov, aperture_radius, focal_distance, ov_distance, ov_radius)
+    if not all(isinstance(v, Tensor) for v in vals):
+        return tuple(_f32_scalar(v) for v in vals)
+    key = id(tan_fov)
+    hit = _THIN_SCALARS.get(key)
+    if hit is not None and all(
+            r() is v and n == v._version
+            for r, n, v in zip(hit[0], hit[1], vals)):
+        return hit[2]
+    floats = tuple(_f32_scalar(v) for v in vals)
+    refs = tuple(
+        weakref.ref(v, lambda _, k=key: _THIN_SCALARS.pop(k, None))
+        for v in vals)
+    _THIN_SCALARS[key] = (refs, tuple(v._version for v in vals), floats)
+    return floats
+
+
+_THINLENS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 5
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+                      + [ctypes.c_void_p])
+
+
+def _thinlens_launch(sx, sy, u1, u2, scalars, seed, *, use_dof, has_ov,
+                     max_tries, presampled, retry_u1, retry_u2, count=False):
+    """Check, allocate and launch ``csrc/thinlens.cu`` (its lane-counting
+    build with ``count``); returns ``(origin, dir, tries)``."""
+    seed = _check_seed(seed)
+    b, dev = _launch.check_flat(
+        (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
+    bu1 = bu2 = None
+    n_planes = bp = tile_rows = plane_tiles = reuse = 0
+    if presampled and has_ov:
+        bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
+        n_planes, bp = bu1.shape
+        tile_rows, plane_tiles, reuse = retry_plane_layout(b, bp)
+    origin, direction, tries = _launch.empty(
+        dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
+        ((b,), torch.int32))
+    if b == 0:
+        return origin, direction, tries
+    fn = _launch.bind("thinlens", "zoic_thinlens_launch", _THINLENS_ARGTYPES,
+                      defines=(_launch.COUNT_DEFINE,) if count else ())
+    _launch.launch(
+        fn, "thinlens", dev,
+        sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+        bu1.data_ptr() if bu1 is not None else None,
+        bu2.data_ptr() if bu2 is not None else None,
+        *scalars, origin.data_ptr(), direction.data_ptr(), tries.data_ptr(),
+        b, int(use_dof), int(has_ov), int(presampled), max_tries + 1,
+        seed, n_planes, bp, tile_rows, plane_tiles, int(reuse),
+    )
+    return origin, direction, tries
 
 
 def thinlens_fused(
@@ -895,49 +1022,35 @@ def thinlens_fused(
     ``[P, Bp]`` planes ``retry_u1/retry_u2``.  CUDA tensors launch
     ``csrc/thinlens.cu``; CPU tensors run :func:`thinlens_plain`."""
     global thinlens_launches
-    args = (sx, sy, u1, u2, tan_fov, aperture_radius, focal_distance,
-            ov_distance, ov_radius, seed)
+    scal = (tan_fov, aperture_radius, focal_distance, ov_distance, ov_radius)
     flags = dict(use_dof=use_dof, has_ov=has_ov, max_tries=max_tries,
                  presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2)
     if sx.device.type == "cpu":
-        return thinlens_plain(*args, **flags)
+        return thinlens_plain(sx, sy, u1, u2, *scal, seed, **flags)
     if sx.device.type != "cuda":
         raise ValueError(f"unsupported device {sx.device}")
-    seed = _check_seed(seed)
-    b = sx.shape[0]
-    dev = sx.device
-    for name, t in (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)):
-        _check_input(name, t, b, dev)
-    scal = torch.stack([
-        torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())
-        for v in (tan_fov, aperture_radius, focal_distance, ov_distance,
-                  ov_radius)
-    ])
-    bu1 = bu2 = None
-    n_planes = bp = tile_rows = plane_tiles = reuse = 0
-    if presampled and has_ov:
-        bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
-        n_planes, bp = bu1.shape
-        tile_rows, plane_tiles, reuse = retry_plane_layout(b, bp)
-    ins = [t.contiguous() for t in (sx, sy, u1, u2)]
-    origin = torch.empty((b, 3), dtype=torch.float32, device=dev)
-    direction = torch.empty((b, 3), dtype=torch.float32, device=dev)
-    tries = torch.empty((b,), dtype=torch.int32, device=dev)
-    if b == 0:
-        return origin, direction, tries
-    fn = _thinlens_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            *(t.data_ptr() for t in ins),
-            bu1.data_ptr() if bu1 is not None else None,
-            bu2.data_ptr() if bu2 is not None else None,
-            scal.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            tries.data_ptr(),
-            b, int(use_dof), int(has_ov), int(presampled), max_tries + 1,
-            seed, n_planes, bp, tile_rows, plane_tiles, int(reuse), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"thinlens kernel launch failed: CUDA error {err}")
-    thinlens_launches += 1
-    return origin, direction, tries
+    out = _thinlens_launch(sx, sy, u1, u2, thinlens_scalars(*scal), seed,
+                           **flags)
+    if sx.shape[0] > 0:
+        thinlens_launches += 1
+    return out
+
+
+def thinlens_lane_use(
+    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
+    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int,
+    **flags,
+) -> Tuple[Tuple[Tensor, Tensor, Tensor], dict]:
+    """:func:`thinlens_fused` through the kernel's lane-counting build, on
+    CUDA tensors: its outputs, and ``attempts`` (lanes that entered an
+    aperture attempt) and ``warp_attempts`` (converged groups of a warp
+    that did): their ratio is the mean active lanes per attempt."""
+    flags = dict(dict(presampled=False, retry_u1=None, retry_u2=None),
+                 **flags)
+    _launch.reset_counts("thinlens")
+    out = _thinlens_launch(
+        sx, sy, u1, u2,
+        thinlens_scalars(tan_fov, aperture_radius, focal_distance,
+                         ov_distance, ov_radius), seed, count=True, **flags)
+    lanes, warps = _launch.read_counts("thinlens", 2)
+    return out, {"attempts": lanes, "warp_attempts": warps}
