@@ -16,9 +16,10 @@ rays), through the entry points a user calls:
   fisheye (harmonic bound, per-key select chain), the Petzval f/1.25 and
   the iris-less telephoto f/5 at focus 30, 100 and 1000 cm (circle bound,
   select chain, most of the film dead), the headline with image bokeh
-  (presampled offsets and retry planes, square-domain pre-check); then
-  the headline lens with naive first-element shaping, and the headline
-  without the pre-check;
+  (presampled offsets and retry planes, square-domain pre-check: one
+  launch of the bokeh sampler, one of its retry-plane entry, no eager
+  hash); then the headline lens with naive first-element shaping, and the
+  headline without the pre-check;
 * the lens compile: every camera of ``zoic_tpu_torch.data.CAMERAS``
   compiled on the card from the port's lens files by ``compile_camera``
   and held against its shipped state (the lens-decided static fields
@@ -44,12 +45,17 @@ in parallel: four sources, the microbenchmark twice, the two camera
 kernels' counting builds); then per camera the run through ``create_rays``
 checked for launches, finite outputs and its run counters, the kernel
 against its plain PyTorch version on the same inputs, and timings with
-CUDA events and, for the kernel's own time on the card, torch.profiler;
-the bokeh kernel against its plain version on 4,194,304 draws (bit-equal);
-ragged batches; lane use; the compiles; the microbenchmark; the bench's
-JSON line.  Then one JSON line per the kernel table, the
-card's name and power limit from nvidia-smi, and last ``{"ok": true,
-"device": ...}``.  Any failed check exits non-zero before the last line.
+CUDA events and, for the kernel's own time on the card, torch.profiler,
+with the call's device time split per kernel; the bokeh kernel against
+its plain version on 4,194,304 draws (bit-equal) on both of its paths
+(tables in shared memory: the 64x64 disk and a 128x128 disk; in global
+memory: a 300x200 image), and its retry-plane entry against the eager
+hash and sampler at the bench's 4 x 524,288 cells and at the ragged
+batches' cell counts (bit-equal); ragged batches; lane use; the compiles;
+the microbenchmark; the bench's JSON line.  Then one JSON line per the
+kernel table (five entries: the four sources, the bokeh source's plane
+entry apart), the card's name and power limit from nvidia-smi, and last
+``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
 It needs a CUDA card and ``nvcc``, and imports nothing of jax.
 """
 
@@ -86,6 +92,7 @@ BUILDS = (*KERNELS, ("roofline", True), ("raytraced", False, COUNT_LANES),
 # main() adds: just under one block per SM) the persistent grid
 RAGGED_SIZES = (1, 31, 33, 2_125)
 PROFILED_CALLS = 5
+PROFILE_WINDOWS = 3
 # the card's published peaks (H100 SXM datasheet): HBM
 # bytes/s, and float32 outside the tensor cores, 67 TFLOP/s counting an FMA
 # as two; one element-op per lane per clock is half of it
@@ -94,9 +101,15 @@ F32_ELEMENT_OPS_PER_S = 67e12 / 2
 # element-ops per ray: the raytraced kernel's is the bench's work count
 # (zoic_tpu_torch.bench.USEFUL_OPS_PER_RAY); the thin-lens kernel's and the
 # bokeh kernel's are upper estimates from their sources, far below their
-# byte bounds either way
+# byte bounds either way; a plane cell adds two counter hashes of 15
+# integer ops each (common.cuh:hash_uniform), counted at the f32 rate
 THINLENS_OPS_PER_RAY = 60
 BOKEH_OPS_PER_DRAW = 30
+PLANE_OPS_PER_CELL = BOKEH_OPS_PER_DRAW + 2 * 15
+# the bokeh kernel's images: (label, shape or None for the benchmark's disk
+# file, path expected: tables in shared memory)
+BOKEH_IMAGES = (("64x64 disk", None, True), ("128x128 disk", (128, 128), True),
+                ("300x200 random", (300, 200), False))
 # compile vs shipped state: solve scalars relative, create_rays attempts/ray
 # relative and vignetted fraction absolute
 SOLVE_RTOL = 1e-5
@@ -213,45 +226,65 @@ def time_ms(fn, make_args, warmup=3, iters=10):
     return times
 
 
-def profiled_kernels(fn, calls: int = PROFILED_CALLS):
+def profiled_kernels(fn, match: str, calls: int = PROFILED_CALLS):
     """torch.profiler's averages of the kernels (and copies) that ran on
-    the card during ``calls`` calls of ``fn()``, after one warm-up call."""
+    the card during ``calls`` calls of ``fn()``, after one warm-up call.
+    The profiler may lose the records of a window: a window in which no
+    kernel's name holds ``match`` is profiled again, up to
+    ``PROFILE_WINDOWS`` times."""
     from zoic_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
     log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke", "trace")
-    with profiling.trace(log_dir) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.device_time_total > 0]
+    for _ in range(PROFILE_WINDOWS):
+        with profiling.trace(log_dir) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.device_time_total > 0]
+        if any(match in e.key for e in events):
+            break
+    return events
 
 
 def device_ms(fn, match: str) -> float:
     """The kernel's own milliseconds on the card per launch by ``fn()``:
     the mean device time of the kernels whose name holds ``match`` (the
     profiler may drop a record, so over the launches it kept)."""
-    events = [e for e in profiled_kernels(fn) if match in e.key]
-    check(events, f"the profiler saw no device time of a {match} kernel")
+    events = [e for e in profiled_kernels(fn, match) if match in e.key]
+    check(events, f"the profiler saw no device time of a {match} kernel "
+          f"in {PROFILE_WINDOWS} windows")
     return (sum(e.device_time_total for e in events)
             / sum(e.count for e in events) / 1e3)
 
 
-def create_rays_split(fn, match: str) -> str:
+def create_rays_split(fn, match: str) -> dict:
     """Where one ``create_rays`` call's time on the card goes: the camera
-    kernel (name holds ``match``), everything else, and the launches."""
-    events = profiled_kernels(fn)
-    own = sum(e.device_time_total for e in events if match in e.key)
-    rest = sum(e.device_time_total for e in events if match not in e.key)
-    n = sum(e.count for e in events)
-    return (f"create_rays on the card: {match} {own / PROFILED_CALLS:.1f} "
-            f"us, other kernels {rest / PROFILED_CALLS:.1f} us, "
-            f"{n / PROFILED_CALLS:.1f} kernels per call (profiler, "
-            f"{PROFILED_CALLS} calls)")
+    kernel (name holds ``match``), everything else, and the launches.  Each
+    kernel name's mean over the records the profiler kept, times its
+    launches per call (its records over the calls, rounded: a dropped
+    record does not lower the sum)."""
+    split = {"own_us": 0.0, "other_us": 0.0, "kernels": 0}
+    events = profiled_kernels(fn, match)
+    check(any(match in e.key for e in events),
+          f"the profiler saw no device time of a {match} kernel in "
+          f"{PROFILE_WINDOWS} windows")
+    for e in events:
+        per_call = max(1, round(e.count / PROFILED_CALLS))
+        us = e.device_time_total / e.count * per_call
+        split["own_us" if match in e.key else "other_us"] += us
+        split["kernels"] += per_call
+    return split
+
+
+def split_text(split: dict, match: str) -> str:
+    return (f"create_rays on the card: {match} {split['own_us']:.1f} us, "
+            f"other kernels {split['other_us']:.1f} us, {split['kernels']} "
+            f"kernels per call (profiler, {PROFILED_CALLS} calls)")
 
 
 def bits_equal(a, b) -> bool:
@@ -263,6 +296,7 @@ def reset_counts(trace_kernel, bokeh_kernel, roofline_kernel=None) -> None:
     trace_kernel.launches = 0
     trace_kernel.thinlens_launches = 0
     bokeh_kernel.launches = 0
+    bokeh_kernel.plane_launches = 0
     if roofline_kernel is not None:
         roofline_kernel.launches = 0
 
@@ -301,15 +335,26 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     g = torch.Generator(device=dev).manual_seed(SEED)
     sx, sy, lx, ly = draws(g, BATCH, dev)
 
-    reset_counts(trace_kernel, bokeh_kernel)
-    rays, stats = zt.create_rays(state, cfg, sx, sy, lx, ly, generator=g)
-    torch.cuda.synchronize()
+    # the eager counter hash must not run: the plane entry hashes on the card
+    eager_hash, hashes = trace_kernel.hash_uniform, []
+    trace_kernel.hash_uniform = (
+        lambda *a, **k: hashes.append(1) or eager_hash(*a, **k))
+    try:
+        reset_counts(trace_kernel, bokeh_kernel)
+        rays, stats = zt.create_rays(state, cfg, sx, sy, lx, ly, generator=g)
+        torch.cuda.synchronize()
+    finally:
+        trace_kernel.hash_uniform = eager_hash
     n_launch, n_bokeh = trace_kernel.launches, bokeh_kernel.launches
+    n_planes = bokeh_kernel.plane_launches
     check(n_launch > 0, f"{name}: no raytraced kernel launch")
     check(trace_kernel.thinlens_launches == 0,
           f"{name}: a thinlens kernel launched")
-    check((n_bokeh > 0) == cfg.use_image,
+    check(n_bokeh == int(cfg.use_image),
           f"{name}: {n_bokeh} bokeh launches with use_image={cfg.use_image}")
+    check(n_planes == int(cfg.use_image and cfg.max_tries > 0),
+          f"{name}: {n_planes} plane launches")
+    check(not hashes, f"{name}: the eager hash ran {len(hashes)} times")
     for f in ("origin", "dir", "weight", "d_ody", "d_ddy"):
         t = getattr(rays, f)
         check(t.device == dev and bool(torch.isfinite(t).all()),
@@ -329,7 +374,8 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     check(bool(live.any()), f"{name}: no live ray")
     norm_err = float((rays.dir[live].norm(dim=1) - 1.0).abs().max())
     check(norm_err < 1e-4, f"{name}: live directions not unit: {norm_err}")
-    print(f"[{tags[0]}] launches raytraced {n_launch} bokeh {n_bokeh}; "
+    print(f"[{tags[0]}] launches raytraced {n_launch} bokeh {n_bokeh} "
+          f"planes {n_planes}, eager hashes 0; "
           f"success {success} vignetted {vig} tir {int(stats.tir)}; "
           f"attempts/ray {attempts:.6f}; vignetted frac {vig_frac:.6f}; "
           f"max ||dir|-1| {norm_err:.2e}", flush=True)
@@ -382,14 +428,16 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
             lambda *a: trace_kernel.raytraced_plain(*a[:7], **a[7]), fresh)
     timed["create_rays"] = time_ms(
         lambda *a: zt.create_rays(state, cfg, *a[:4], seed=a[4]), e2e_args)
+    split = create_rays_split(
+        lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed),
+        "raytraced_kernel")
     print(f"[{tags[2]}] median of 10 (3 warm-up), B = {BATCH}, on {smi}: "
           + median_line(timed) + f"; kernel on the card {dev_ms:.4f} ms "
           f"(profiler, {PROFILED_CALLS} launches); two launches bit-equal; "
-          + create_rays_split(
-              lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed),
-              "raytraced_kernel"), flush=True)
+          + split_text(split, "raytraced_kernel"), flush=True)
     planes = [t for t in (kw["retry_u1"], kw["retry_u2"]) if t is not None]
     return {"launches": n_launch, "bokeh_launches": n_bokeh,
+            "plane_launches": n_planes, "split": split,
             "bytes": nbytes(sx, sy, u1, u2, ko, kd, kt, ktir, *planes),
             "max_abs_err": max_abs_err, "mismatches": mismatch,
             "attempts": attempts, "vignetted_frac": vig_frac,
@@ -494,13 +542,13 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     }
     dev_ms = device_ms(lambda: trace_kernel.thinlens_fused(*args, **kw),
                        "thinlens_kernel")
+    split = create_rays_split(
+        lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed,
+                               generator=g), "thinlens_kernel")
     print(f"[{tag}c {name} timing] median of 10 (3 warm-up), B = {BATCH}, "
           f"on {smi}: " + median_line(timed) + f"; kernel on the card "
           f"{dev_ms:.4f} ms (profiler, {PROFILED_CALLS} launches); "
-          + create_rays_split(
-              lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed,
-                                     generator=g), "thinlens_kernel"),
-          flush=True)
+          + split_text(split, "thinlens_kernel"), flush=True)
     return {"thinlens_launches": n_thin, "bokeh_launches": n_bokeh,
             "bytes": nbytes(*args[:4], ko, kd, kt, *planes.values()),
             "max_abs_err": err,
@@ -510,38 +558,121 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
             "create_rays_ms": statistics.median(timed["create_rays"])}
 
 
-def bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, tag):
-    """The bokeh kernel against its plain version on B draws: bit-equal."""
-    image = zt.bokeh.load(bokeh_path).to(dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+def edge_draws(image, g, dev):
+    """B uniforms on the card, led by 0.0, 1 - 2**-24 and the image's CDF
+    entries (as many as fit in a tenth of the batch)."""
     u1 = torch.rand(BATCH, generator=g, device=dev)
     u2 = torch.rand(BATCH, generator=g, device=dev)
-    kdx, kdy = bokeh_kernel.sample_fused(image, u1, u2)
-    pdx, pdy = bokeh_kernel.sample_plain(image, u1, u2)
-    torch.cuda.synchronize()
-    bits = [int((k.view(torch.int32) != p.view(torch.int32)).sum())
-            for k, p in ((kdx, pdx), (kdy, pdy))]
-    err = max(float((kdx - pdx).abs().max()), float((kdy - pdy).abs().max()))
-    print(f"[{tag}a bokeh kernel vs plain] {image.height}x{image.width} "
-          f"image, {BATCH} draws: bit mismatches dx {bits[0]} dy {bits[1]} "
-          f"(limit 0); max |d| {err:.3e}", flush=True)
-    check(bits == [0, 0], "bokeh kernel and plain are not bit-equal")
+    edge = torch.tensor([0.0, 1.0 - 2.0**-24], device=dev)
+    e1 = torch.cat([edge, image.cdf_row])[:BATCH // 10]
+    e2 = torch.cat([edge, image.cdf_col.reshape(-1)])[:BATCH // 10]
+    u1[:e1.numel()] = e1
+    u2[:e2.numel()] = e2
+    return u1, u2
+
+
+def bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, tag):
+    """The bokeh kernel against its plain version on B draws, bit-equal, on
+    each image of ``BOKEH_IMAGES`` (both of the kernel's paths), and its
+    timings; the first image's are the kernel table's."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = {}
+    for i, (label, shape, shared) in enumerate(BOKEH_IMAGES):
+        if shape is None:
+            image = zt.bokeh.load(bokeh_path)
+        elif shape[0] == shape[1]:
+            image = zt.bokeh.build(zt.data.bokeh_disk(shape[0]))
+        else:
+            pixels = np.random.default_rng(SEED).random((*shape, 3),
+                                                        dtype=np.float32)
+            pixels[::7] = 0.0
+            image = zt.bokeh.build(pixels)
+        image = image.to(dev)
+        check(bokeh_kernel._plan(image, BATCH, False, dev)[1] == shared,
+              f"bokeh {label}: tables not in "
+              f"{'shared' if shared else 'global'} memory")
+        u1, u2 = edge_draws(image, g, dev)
+        kdx, kdy = bokeh_kernel.sample_fused(image, u1, u2)
+        pdx, pdy = bokeh_kernel.sample_plain(image, u1, u2)
+        torch.cuda.synchronize()
+        bits = [int((k.view(torch.int32) != p.view(torch.int32)).sum())
+                for k, p in ((kdx, pdx), (kdy, pdy))]
+        err = max(float((kdx - pdx).abs().max()),
+                  float((kdy - pdy).abs().max()))
+        print(f"[{tag}{'abc'[i]} bokeh kernel vs plain] {label} "
+              f"({image.height}x{image.width}, tables in "
+              f"{'shared' if shared else 'global'} memory), {BATCH} draws: "
+              f"bit mismatches dx {bits[0]} dy {bits[1]} (limit 0); max |d| "
+              f"{err:.3e}", flush=True)
+        check(bits == [0, 0], f"bokeh {label}: kernel and plain are not "
+              "bit-equal")
+
+        def fresh(image=image):
+            return (image, torch.rand(BATCH, generator=g, device=dev),
+                    torch.rand(BATCH, generator=g, device=dev))
+
+        timed = {"kernel": time_ms(bokeh_kernel.sample_fused, fresh),
+                 "plain": time_ms(bokeh_kernel.sample_plain, fresh)}
+        dev_ms = device_ms(lambda: bokeh_kernel.sample_fused(image, u1, u2),
+                           "bokeh_kernel")
+        rows[label] = {
+            "max_abs_err": err,
+            "bytes": nbytes(u1, u2, kdx, kdy,
+                            bokeh_kernel.packed_tables(image)),
+            "kernel_ms": statistics.median(timed["kernel"]),
+            "device_ms": dev_ms,
+            "plain_ms": statistics.median(timed["plain"])}
+        print(f"[{tag}{'abc'[i]} bokeh timing] {label}: median of 10 (3 "
+              f"warm-up), B = {BATCH} draws, on {smi}: "
+              + median_line(timed).replace("rays/s", "draws/s")
+              + f"; kernel on the card {dev_ms:.4f} ms (profiler)",
+              flush=True)
+    return rows
+
+
+def planes_phase(zt, bokeh_kernel, state, sizes, dev, smi, tag):
+    """The retry-plane entry against its plain version (the eager hash and
+    sampler), bit-equal, at the bench's planes and at the cell counts of
+    the ragged batches, then its timings at the bench's planes."""
+    from zoic_tpu_torch.models import raytraced as rt_model
+
+    image = state.bokeh
+    pseed = SEED % (1 << 22) + rt_model.PLANE_SEED_OFFSET
+    salts = (rt_model.SALT_P1, rt_model.SALT_P2)
+    n_planes, bp = rt_model.plane_shape(MAX_TRIES, BATCH)
+    cells = [n_planes * bp] + [int(np.prod(rt_model.plane_shape(MAX_TRIES, n)))
+                               for n in sizes]
+    err = 0.0
+    for n in cells:
+        k = bokeh_kernel.planes_fused(image, n, pseed, *salts)
+        p = bokeh_kernel.planes_plain(image, n, pseed, *salts)
+        torch.cuda.synchronize()
+        bits = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   for a, b in zip(k, p))
+        check(bits == 0, f"bokeh planes: {bits} bits differ at {n} cells")
+        err = max(err, *(float((a - b).abs().max()) for a, b in zip(k, p)))
+    print(f"[{tag}d bokeh planes vs plain] {n_planes} x {bp} cells and "
+          f"{', '.join(map(str, cells[1:]))} (ragged batches): bit "
+          f"mismatches 0 (limit 0)", flush=True)
+    n = cells[0]
+    seeds = iter(range(pseed, pseed + 1000))
 
     def fresh():
-        return (image, torch.rand(BATCH, generator=g, device=dev),
-                torch.rand(BATCH, generator=g, device=dev))
+        return (image, n, next(seeds), *salts)
 
-    timed = {"kernel": time_ms(bokeh_kernel.sample_fused, fresh),
-             "plain": time_ms(bokeh_kernel.sample_plain, fresh)}
-    dev_ms = device_ms(lambda: bokeh_kernel.sample_fused(image, u1, u2),
+    timed = {"kernel": time_ms(bokeh_kernel.planes_fused, fresh),
+             "plain": time_ms(bokeh_kernel.planes_plain, fresh)}
+    dev_ms = device_ms(lambda: bokeh_kernel.planes_fused(image, n, pseed,
+                                                         *salts),
                        "bokeh_kernel")
-    print(f"[{tag}b bokeh timing] median of 10 (3 warm-up), B = {BATCH} "
-          f"draws, on {smi}: " + median_line(timed).replace("rays/s",
-                                                            "draws/s")
+    print(f"[{tag}e bokeh planes timing] median of 10 (3 warm-up), {n} "
+          f"cells, on {smi}: " + "; ".join(
+              f"{k} {statistics.median(ts):.4f} ms (min {min(ts):.4f}, max "
+              f"{max(ts):.4f})" for k, ts in timed.items())
           + f"; kernel on the card {dev_ms:.4f} ms (profiler)", flush=True)
-    tables = [getattr(image, f) for f in ("cdf_row", "row_indices", "cdf_col",
-                                          "dx_col", "dy_srow")]
-    return {"max_abs_err": err, "bytes": nbytes(u1, u2, kdx, kdy, *tables),
+    k = bokeh_kernel.planes_fused(image, n, pseed, *salts)
+    return {"max_abs_err": err, "cells": n,
+            "bytes": nbytes(*k, bokeh_kernel.packed_tables(image)),
             "kernel_ms": statistics.median(timed["kernel"]),
             "device_ms": dev_ms,
             "plain_ms": statistics.median(timed["plain"])}
@@ -791,8 +922,15 @@ def main() -> None:
     for i, (name, tcfg) in enumerate(thinlens_configs(zt, bokeh_path).items()):
         thin[name] = thinlens_phase(zt, trace_kernel, bokeh_kernel, name,
                                     tcfg, dev, smi, f"{7 + i}")
-    # ---- the bokeh kernel against its plain version
-    bk = bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, "12")
+    # ---- the bokeh kernel against its plain version on both paths, and
+    # its retry-plane entry
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = (*RAGGED_SIZES, sms * 32 * trace_kernel.WARPS_PER_BLOCK - 29)
+    bk_rows = bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, "12")
+    bk = bk_rows[BOKEH_IMAGES[0][0]]
+    bokeh_state = zt.load_state(zt.data.state_path("raytraced_bokeh_image"),
+                                device=dev)
+    bpl = planes_phase(zt, bokeh_kernel, bokeh_state, sizes, dev, smi, "12")
 
     # ---- the other raytraced cameras, one variant after another
     for i, (name, camera, changes, time_plain) in enumerate(
@@ -807,17 +945,13 @@ def main() -> None:
     print("[23 raytraced summary] " + json.dumps({
         name: {k: r[k] for k in ("kernel_ms", "device_ms", "plain_ms",
                                  "create_rays_ms", "attempts",
-                                 "vignetted_frac", "mismatches")}
+                                 "vignetted_frac", "mismatches", "split")}
         for name, r in rt.items()}), flush=True)
 
     # ---- what must not depend on the schedule: ragged batches, lane use
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    sizes = (*RAGGED_SIZES, sms * 32 * trace_kernel.WARPS_PER_BLOCK - 29)
     ragged_phase(zt, trace_kernel, "raytraced_headline", state,
                  raytraced_config(zt, "headline"), sizes, dev, "23a")
-    ragged_phase(zt, trace_kernel, "raytraced_bokeh_image",
-                 zt.load_state(zt.data.state_path("raytraced_bokeh_image"),
-                               device=dev),
+    ragged_phase(zt, trace_kernel, "raytraced_bokeh_image", bokeh_state,
                  raytraced_config(zt, "raytraced_bokeh_image", bokeh_path),
                  sizes, dev, "23b")
     lanes = lane_use_phase(dev, smi, "23c")
@@ -835,6 +969,7 @@ def main() -> None:
     rt_bound = bound(head["bytes"], USEFUL_OPS_PER_RAY * BATCH)
     thin_bound = bound(rep["bytes"], THINLENS_OPS_PER_RAY * BATCH)
     bokeh_bound = bound(bk["bytes"], BOKEH_OPS_PER_DRAW * BATCH)
+    planes_bound = bound(bpl["bytes"], PLANE_OPS_PER_CELL * bpl["cells"])
     entries = [{
         "name": "raytraced",
         "route": "cuda",
@@ -878,6 +1013,21 @@ def main() -> None:
         "bound_ms": bokeh_bound[0],
         "bound_by": bokeh_bound[1],
         "library_ms": None,
+        "config": "64x64 disk",
+    }, {
+        "name": "bokeh_planes",
+        "route": "cuda",
+        "source": "zoic_tpu_torch/csrc/bokeh.cu",
+        "replaces": "zoic_tpu/models/raytraced.py:225",
+        "launches": sum(r["plane_launches"] for r in rt.values()),
+        "max_abs_err": bpl["max_abs_err"],
+        "ms": bpl["kernel_ms"],
+        "device_ms": bpl["device_ms"],
+        "plain_ms": bpl["plain_ms"],
+        "bound_ms": planes_bound[0],
+        "bound_by": planes_bound[1],
+        "library_ms": None,
+        "config": f"raytraced_bokeh_image, {bpl['cells']} cells",
     }, {
         "name": "roofline",
         "route": "cuda",
@@ -895,8 +1045,8 @@ def main() -> None:
         "contract_ms": roof["contract_ms"],
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
-          and entries[2]["launches"] > 0,
-          "the bokeh configs launched no bokeh kernel")
+          and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,
+          "the bokeh configs launched no bokeh kernel or plane entry")
 
     print("[27 compile and roofline summary] " + json.dumps({
         "compile_s": {n: r["compile_s"] for n, r in comp.items()},
@@ -907,6 +1057,7 @@ def main() -> None:
         "roofline_bound_share": {n: r["bound_ms"] / r["ms"]
                                  for n, r in roof["rows"].items()},
         "fma_contract_top_s": roof["contract_rate"] / 1e12,
+        "bokeh_images": bk_rows,
         "lanes_per_warp_trace": {n: r["lanes_per_warp_trace"]
                                  for n, r in lanes.items()
                                  if "lanes_per_warp_trace" in r},

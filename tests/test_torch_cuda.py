@@ -167,17 +167,19 @@ def test_create_rays_takes_columns_of_a_sample_tensor(cuda_state, model):
 @pytest.mark.cuda
 def test_raytraced_bokeh_create_rays_on_cuda(cuda_dev):
     """The image-bokeh camera end to end: one bokeh launch for the
-    attempt-0 offsets, one for the retry planes, one raytraced launch."""
+    attempt-0 offsets, one launch of the plane entry for the retry planes
+    (no eager hash), one raytraced launch."""
     cam = zpt.data.CAMERAS["raytraced_bokeh_image"]
     cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
                            lens_data_path=cam.lens, bokeh_path="disk64.npy",
                            **cam.config_kwargs())
     st = zpt.load_state(zpt.data.state_path(cam.file), device=cuda_dev)
     sx, sy, lx, ly = _inputs(65_536, seed=4)
-    t0, b0 = tk.launches, bk.launches
+    t0, b0, p0 = tk.launches, bk.launches, bk.plane_launches
     rays, stats = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=77)
     torch.cuda.synchronize()
-    assert tk.launches == t0 + 1 and bk.launches == b0 + 2
+    assert tk.launches == t0 + 1 and bk.launches == b0 + 1
+    assert bk.plane_launches == p0 + 1
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert int(stats.tries_total) > 0
     assert bool(torch.isfinite(rays.dir).all()) and rays.dir.is_cuda
@@ -352,6 +354,82 @@ def test_bokeh_kernel_matches_plain_bit_for_bit(cuda_dev, shape, n):
     torch.cuda.synchronize()
     assert torch.equal(kdx.view(torch.int32), pdx.view(torch.int32))
     assert torch.equal(kdy.view(torch.int32), pdy.view(torch.int32))
+
+
+def _bokeh_image(shape):
+    """The 64x64 disk, a 128x128 disk, or random pixels (every fifth row
+    dark when there are more than five)."""
+    if shape in ((64, 64), (128, 128)):
+        return zpt.bokeh.build(_disk(shape[0]))
+    pixels = np.random.default_rng(shape[0] * 1000 + shape[1]).random(
+        (*shape, 3), dtype=np.float32)
+    if shape[0] > 5:
+        pixels[::5] = 0.0
+    return zpt.bokeh.build(pixels)
+
+
+def _edge_draws(image, n, seed):
+    """Uniforms led by 0.0, 1 - 2**-24 and the CDF entries themselves."""
+    rng = np.random.default_rng(seed)
+    u1 = rng.uniform(0, 1, n).astype(np.float32)
+    u2 = rng.uniform(0, 1, n).astype(np.float32)
+    edges = [0.0, 1.0 - 2.0**-24]
+    e1 = np.concatenate([edges, image.cdf_row.numpy()]).astype(np.float32)
+    e2 = np.concatenate([edges, image.cdf_col.numpy().reshape(-1)[::7]])
+    k1, k2 = min(n, len(e1)), min(n, len(e2))
+    u1[:k1], u2[:k2] = e1[:k1], e2[:k2].astype(np.float32)
+    return torch.from_numpy(u1), torch.from_numpy(u2)
+
+
+BOKEH_SHAPES = [(1, 1), (1, 64), (64, 1), (64, 64), (128, 128), (300, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 77, 4097])
+@pytest.mark.parametrize("shape", BOKEH_SHAPES)
+def test_bokeh_kernel_both_paths_match_plain(cuda_dev, shape, n):
+    """The shared-memory path (up to 128x128 on an H100) and the global
+    one (300x200), at batches that are not multiples of 4, with draws on
+    the CDF entries, 0.0 and 1 - 2**-24; then again with inputs one float
+    off 16-byte alignment (the scalar loads)."""
+    image = _bokeh_image(shape)
+    u1, u2 = _edge_draws(image, n, seed=shape[0] + n)
+    image = image.to(cuda_dev)
+    _, shared, _ = bk._plan(image, n, False, cuda_dev)
+    assert shared == (shape != (300, 200))
+    pad = torch.zeros(1)
+    for off in (0, 1):
+        a, b = (torch.cat([pad[:off], u]).to(cuda_dev)[off:]
+                for u in (u1, u2))
+        before = bk.launches
+        kdx, kdy = bk.sample_fused(image, a, b)
+        assert bk.launches == before + 1
+        pdx, pdy = bk.sample_plain(image, a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(kdx.view(torch.int32), pdx.view(torch.int32))
+        assert torch.equal(kdy.view(torch.int32), pdy.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64), (300, 200)])
+@pytest.mark.parametrize("n_cells", [4, 124, 132, 8500, 67_468, 2_097_152])
+def test_bokeh_planes_match_plain(cuda_dev, n_cells, shape):
+    """The plane entry against the eager hash and sampler, bit for bit, at
+    the cell counts of ragged batches and of the bench, with a plane seed
+    past 2**31 (masked to 32 bits as the eager hash masks it)."""
+    from zoic_tpu_torch.models import raytraced as rt_model
+
+    image = _bokeh_image(shape).to(cuda_dev)
+    salts = (rt_model.SALT_P1, rt_model.SALT_P2)
+    for pseed in (77 + rt_model.PLANE_SEED_OFFSET, (1 << 31) + 12_345):
+        before = bk.plane_launches
+        k = bk.planes_fused(image, n_cells, pseed, *salts)
+        assert bk.plane_launches == before + 1
+        p = bk.planes_plain(image, n_cells, pseed, *salts)
+        torch.cuda.synchronize()
+        for kt, pt in zip(k, p):
+            assert kt.shape == (n_cells,) and kt.is_cuda
+            assert torch.equal(kt.view(torch.int32), pt.view(torch.int32))
 
 
 @pytest.mark.cuda

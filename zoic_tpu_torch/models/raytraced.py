@@ -3,9 +3,10 @@
 Counterpart of ``zoic_tpu/models/raytraced.py:_create_rays_pallas``.  The
 whole sample -> shape -> trace -> retry pipeline runs in one kernel
 (:mod:`zoic_tpu_torch.ops.trace_kernel`); with image bokeh the attempt-0
-offsets and the retry planes are drawn first by
-:func:`zoic_tpu_torch.bokeh.sample`.  The weight, exposure and derivative
-epilogue stays in PyTorch.
+offsets are drawn first by :func:`zoic_tpu_torch.bokeh.sample` and the
+retry planes by :func:`zoic_tpu_torch.ops.bokeh_kernel.planes_fused`, one
+launch that hashes each plane cell and inverts the CDF.  The weight,
+exposure and derivative epilogue stays in PyTorch.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from .. import bokeh as bokeh_mod
 from ..config import CameraConfig
-from ..ops import trace_kernel
+from ..ops import bokeh_kernel, trace_kernel
 from ..system import CameraState, RayBatch, RayStats
 from . import common
 
@@ -56,20 +57,24 @@ def create_rays(
     return _create_rays_kernel(state, config, sx, sy, lensx, lensy, seed)
 
 
+def plane_shape(max_tries: int, b: int) -> Tuple[int, int]:
+    """``(P, Bp)`` of the retry planes for ``b`` rays: ``P =
+    min(BOKEH_PLANES, max_tries + 1)`` planes of ``Bp = min(B, max(2**16,
+    B // 8))`` draws."""
+    return (min(trace_kernel.BOKEH_PLANES, max_tries + 1),
+            min(b, max(1 << 16, b // 8)))
+
+
 def retry_planes(state: CameraState, max_tries: int, b: int,
                  seed: int) -> Tuple[Tensor, Tensor]:
-    """``[P, Bp]`` bokeh offsets for the presampled retry draws: ``P =
-    min(BOKEH_PLANES, max_tries + 1)`` planes of ``Bp = min(B, max(2**16,
-    B // 8))`` draws, whose uniforms come from the counter hash keyed by
-    the cell index and ``seed + 0x5BD1``."""
-    n_planes = min(trace_kernel.BOKEH_PLANES, max_tries + 1)
-    bp = min(b, max(1 << 16, b // 8))
-    ids = torch.arange(n_planes * bp, dtype=torch.int64, device=state.device)
-    zero = torch.zeros_like(ids)
-    pseed = seed + PLANE_SEED_OFFSET
-    pu1 = trace_kernel.hash_uniform(ids, pseed, zero, SALT_P1)
-    pu2 = trace_kernel.hash_uniform(ids, pseed, zero, SALT_P2)
-    ru1, ru2 = bokeh_mod.sample(state.bokeh, pu1, pu2)
+    """``[P, Bp]`` bokeh offsets for the presampled retry draws
+    (:func:`plane_shape`), whose uniforms come from the counter hash keyed
+    by the cell index and ``seed + 0x5BD1``: one launch of the plane entry
+    for a state on the card, the plain version on the CPU."""
+    n_planes, bp = plane_shape(max_tries, b)
+    ru1, ru2 = bokeh_kernel.planes_fused(
+        state.bokeh, n_planes * bp, seed + PLANE_SEED_OFFSET, SALT_P1,
+        SALT_P2)
     return ru1.reshape(n_planes, bp), ru2.reshape(n_planes, bp)
 
 

@@ -1,5 +1,5 @@
-"""Image-bokeh CDF inversion: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Image-bokeh CDF inversion and the retry planes drawn by it: the CUDA
+kernel's wrappers and their plain PyTorch versions.
 
 Port of ``zoic_tpu/ops/bokeh_kernel.py:sample_fused``.  For each draw
 ``(u1, u2)``:
@@ -15,7 +15,15 @@ reciprocal multiply that is 1 ulp off.  So the output is bit-equal to
 ``zoic_tpu.bokeh.sample`` and to the reference's ``std::upper_bound``.
 
 :func:`sample_fused` launches ``csrc/bokeh.cu`` for CUDA tensors and runs
-:func:`sample_plain` for CPU tensors.
+:func:`sample_plain` for CPU tensors.  :func:`planes_fused` draws the
+retry planes of raytraced + image bokeh (the counter hash of each plane
+cell, then the inversion) in one launch of the same source, and runs
+:func:`planes_plain` for an image on the CPU.
+
+The kernel reads the tables packed by :func:`packed_tables`, the per-row
+ones in sorted-row order with a row stride of ``w + 1``; it copies them
+into a block's shared memory when they fit (:func:`uses_smem`), else
+searches them in global memory.
 """
 
 from __future__ import annotations
@@ -27,15 +35,21 @@ from typing import Tuple
 import torch
 
 from ..system import BokehImage
-from . import _launch
+from . import _launch, trace_kernel
 
 Tensor = torch.Tensor
 
-# launches of the CUDA kernel by sample_fused (plain CPU runs not counted)
+# launches of the CUDA kernel by sample_fused and by planes_fused (plain
+# CPU runs not counted)
 launches = 0
+plane_launches = 0
 
 # draws per searchsorted call of sample_plain: bounds its [chunk, w] gather
 _PLAIN_CHUNK = 1 << 20
+
+# csrc/bokeh.cu's threads a block (kBlock) and draws a thread a step (kDraws)
+BLOCK = 512
+DRAWS_PER_THREAD = 4
 
 
 def sample_plain(image: BokehImage, u_row: Tensor,
@@ -59,38 +73,141 @@ def sample_plain(image: BokehImage, u_row: Tensor,
     return dx, dy
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def planes_plain(image: BokehImage, n_cells: int, pseed: int, salt1: int,
+                 salt2: int) -> Tuple[Tensor, Tensor]:
+    """Plain version of the retry planes, on the image's device: cell ``k``
+    of ``[n_cells]`` is the draw of ``hash_uniform(k, pseed, 0, salt1)``
+    and ``hash_uniform(k, pseed, 0, salt2)`` (ids and seed as uint32)."""
+    ids = torch.arange(n_cells, dtype=torch.int64,
+                       device=image.cdf_row.device)
+    zero = torch.zeros_like(ids)
+    pu1 = trace_kernel.hash_uniform(ids, pseed, zero, salt1)
+    pu2 = trace_kernel.hash_uniform(ids, pseed, zero, salt2)
+    return sample_plain(image, pu1, pu2)
 
 
-# (id(image), device) -> (weakref(image), tables): contiguous device copies
-# of a compiled image's tables, made once per image, not once per call
-_TABLES: dict = {}
+def table_floats(h: int, w: int) -> int:
+    """Floats of the packed tables of an ``h x w`` image: ``cdf_row``,
+    ``dy_srow``, and the two per-row tables at row stride ``w + 1``, padded
+    to a multiple of 4 (the kernel copies them as float4)."""
+    return -(-2 * h * (w + 2) // 4) * 4
 
 
-def _kernel_tables(image: BokehImage, dev):
-    """``(cdf_row, row_indices, cdf_col, dx_col, dy_srow)`` on ``dev``."""
-    key = (id(image), str(dev))
-    hit = _TABLES.get(key)
-    if hit is not None and hit[0]() is image:
-        return hit[1]
+def smem_bytes(h: int, w: int) -> int:
+    """Shared memory a block of the kernel takes for an ``h x w`` image
+    when the tables go there: 33,792 bytes for 64x64, 133,120 for
+    128x128."""
+    return 4 * table_floats(h, w)
+
+
+def uses_smem(h: int, w: int, limit: int) -> bool:
+    """Whether the kernel searches an ``h x w`` image's tables in shared
+    memory: they fit in ``limit`` bytes, the card's opt-in limit a block
+    (232,448 on an H100).  Larger images are searched in global memory."""
+    return smem_bytes(h, w) <= limit
+
+
+def packed_tables(image: BokehImage) -> Tensor:
+    """The kernel's tables of ``image``, on its device, as one float32
+    tensor of :func:`table_floats` entries (layout in
+    :func:`table_views`).  Rows are only moved, never computed, so every
+    entry is one of the image's."""
     h, w = image.height, image.width
     if h < 1 or w < 1:
         raise ValueError(f"empty bokeh image ({h}x{w})")
     shapes = {"cdf_row": (h,), "row_indices": (h,), "cdf_col": (h, w),
               "dx_col": (h, w), "dy_srow": (h,)}
-    tables = []
     for name, shape in shapes.items():
-        t = getattr(image, name)
-        if tuple(t.shape) != shape:
+        if tuple(getattr(image, name).shape) != shape:
             raise ValueError(f"bokeh table {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        dtype = torch.int32 if name == "row_indices" else torch.float32
-        tables.append(t.to(dev, dtype).contiguous())
-    tables = tuple(tables)
+                             f"{tuple(getattr(image, name).shape)}, expected "
+                             f"{shape}")
+    f32 = torch.float32
+    order = image.row_indices.long()
+
+    def by_row(t):
+        rows = t.to(f32)[order]
+        return torch.cat([rows, rows.new_zeros(h, 1)], dim=1).reshape(-1)
+
+    parts = [image.cdf_row.to(f32), image.dy_srow.to(f32),
+             by_row(image.cdf_col), by_row(image.dx_col)]
+    pad = table_floats(h, w) - 2 * h * (w + 2)
+    return torch.cat(parts + [parts[0].new_zeros(pad)])
+
+
+def table_views(packed: Tensor, h: int,
+                w: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """``(cdf_row [h], dy_srow [h], cdf_col_s [h, w+1], dx_col_s
+    [h, w+1])``, views of :func:`packed_tables`: row ``r`` of the last two
+    is image row ``row_indices[r]``, its column ``w`` a zero pad."""
+    ws = w + 1
+    return (packed[:h], packed[h:2 * h],
+            packed[2 * h:2 * h + h * ws].view(h, ws),
+            packed[2 * h + h * ws:2 * h * (ws + 1)].view(h, ws))
+
+
+def persistent_grid(n: int, sm_count: int, blocks_per_sm: int) -> int:
+    """Blocks of the kernel's persistent grid for ``n`` draws: as many as
+    the card holds at once, but no more than give each thread one step of
+    four draws, and at least one."""
+    steps = -(-n // DRAWS_PER_THREAD)
+    return max(1, min(sm_count * blocks_per_sm, -(-steps // BLOCK)))
+
+
+# (id(image), device) -> (weakref(image), packed tables on the device):
+# made once per image, not once per call
+_TABLES: dict = {}
+# device index -> (SMs, opt-in shared memory a block)
+_CARD: dict = {}
+# (device index, shared, hash, smem bytes) -> blocks per SM
+_BLOCKS_PER_SM: dict = {}
+
+
+def _kernel_tables(image: BokehImage, dev) -> Tensor:
+    key = (id(image), str(dev))
+    hit = _TABLES.get(key)
+    if hit is not None and hit[0]() is image:
+        return hit[1]
+    packed = packed_tables(image).to(dev).contiguous()
     for k in [k for k, v in _TABLES.items() if v[0]() is None]:
         del _TABLES[k]
-    _TABLES[key] = (weakref.ref(image), tables)
-    return tables
+    _TABLES[key] = (weakref.ref(image), packed)
+    return packed
+
+
+def _plan(image: BokehImage, n: int, hash_: bool, dev):
+    """``(packed tables, shared, grid)`` of a launch over ``n`` draws."""
+    packed = _kernel_tables(image, dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    card = _CARD.get(index)
+    if card is None:
+        with torch.cuda.device(index):
+            limit = _launch.bind("bokeh", "zoic_bokeh_smem_limit", [])()
+        if limit < 0:
+            raise RuntimeError("bokeh kernel: shared-memory limit query failed")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        card = _CARD[index] = (sms, limit)
+    shared = uses_smem(image.height, image.width, card[1])
+    smem = 4 * packed.numel() if shared else 0
+    key = (index, shared, hash_, smem)
+    per_sm = _BLOCKS_PER_SM.get(key)
+    if per_sm is None:
+        fn = _launch.bind("bokeh", "zoic_bokeh_blocks_per_sm",
+                          [ctypes.c_int] * 3)
+        with torch.cuda.device(index):
+            per_sm = fn(int(shared), int(hash_), smem)
+        if per_sm < 1:
+            raise RuntimeError(f"bokeh kernel: no block fits an SM with "
+                               f"{smem} bytes of tables ({per_sm})")
+        _BLOCKS_PER_SM[key] = per_sm
+    return packed, shared, persistent_grid(n, card[0], per_sm)
+
+
+_SAMPLE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p])
+_PLANES_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                    + [ctypes.c_uint32] * 3 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p])
 
 
 def sample_fused(image: BokehImage, u_row: Tensor,
@@ -105,16 +222,46 @@ def sample_fused(image: BokehImage, u_row: Tensor,
     if u_row.device.type != "cuda":
         raise ValueError(f"unsupported device {u_row.device}")
     b, dev = _launch.check_flat((("u_row", u_row), ("u_col", u_col)))
-    cdf_row, row_idx, cdf_col, dx_col, dy_srow = _kernel_tables(image, dev)
     dx, dy = _launch.empty(dev, ((b,), torch.float32), ((b,), torch.float32))
     if b == 0:
         return dx, dy
+    packed, shared, grid = _plan(image, b, False, dev)
     _launch.launch(
-        _launch.bind("bokeh", "zoic_bokeh_launch", _ARGTYPES), "bokeh", dev,
-        u_row.data_ptr(), u_col.data_ptr(), cdf_row.data_ptr(),
-        row_idx.data_ptr(), cdf_col.data_ptr(), dx_col.data_ptr(),
-        dy_srow.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        b, image.height, image.width,
+        _launch.bind("bokeh", "zoic_bokeh_launch", _SAMPLE_ARGTYPES), "bokeh",
+        dev, u_row.data_ptr(), u_col.data_ptr(), packed.data_ptr(),
+        dx.data_ptr(), dy.data_ptr(), b, image.height, image.width,
+        packed.numel(), int(shared), grid,
     )
     launches += 1
+    return dx, dy
+
+
+def planes_fused(image: BokehImage, n_cells: int, pseed: int, salt1: int,
+                 salt2: int) -> Tuple[Tensor, Tensor]:
+    """The retry planes as flat ``(dx[n_cells], dy[n_cells])`` f32, on the
+    image's device: cell ``k`` is the draw of ``hash_uniform(k, pseed, 0,
+    salt1)`` and ``hash_uniform(k, pseed, 0, salt2)``.  An image on the
+    card launches ``csrc/bokeh.cu``'s plane entry, which hashes the cell
+    index itself; one on the CPU runs :func:`planes_plain`."""
+    global plane_launches
+    dev = image.cdf_row.device
+    if dev.type == "cpu":
+        return planes_plain(image, n_cells, pseed, salt1, salt2)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not 0 <= n_cells < 1 << 31:
+        raise ValueError(f"n_cells {n_cells} outside [0, 2**31)")
+    dx, dy = _launch.empty(dev, ((n_cells,), torch.float32),
+                           ((n_cells,), torch.float32))
+    if n_cells == 0:
+        return dx, dy
+    packed, shared, grid = _plan(image, n_cells, True, dev)
+    m = 0xFFFFFFFF
+    _launch.launch(
+        _launch.bind("bokeh", "zoic_bokeh_planes_launch", _PLANES_ARGTYPES),
+        "bokeh planes", dev, packed.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        n_cells, pseed & m, salt1 & m, salt2 & m, image.height, image.width,
+        packed.numel(), int(shared), grid,
+    )
+    plane_launches += 1
     return dx, dy
