@@ -29,7 +29,17 @@ rays), through the entry points a user calls:
   versions (bit-equal) and beside their bounds, the fma case also with
   contraction on;
 * the bench, ``python -m zoic_tpu_torch.bench``'s headline, which
-  measures its peak op rate with the microbenchmark kernel.
+  measures its peak op rate with the microbenchmark kernel;
+* the library surface, as the README's quick start uses it (phases
+  27-31): ``Camera`` and ``render`` on the headline at a 2048 x 1024 frame
+  at 2 spp (the bench's batch), ``render_rays`` held to ``create_rays`` on
+  the same samples and seed bit for bit, and the thin-lens camera with
+  bokeh and vignetting and the raytraced camera with bokeh through the
+  same calls; ``Camera.update`` (a bokeh-only change, the exposure, a
+  recompile that reproduces the first compile's draws); state files and
+  ``cached_compile``; the exact eager path (``impl="jnp"``) against the
+  kernel and autograd on the card; data parallelism over a mesh of the one
+  card and of two shards on it, and the bench with ``--mesh``.
 
 The raytraced kernel schedules its rays dynamically (warps take whichever
 rays are ready), so it is also held to what must not depend on the
@@ -52,7 +62,9 @@ its plain version on 4,194,304 draws (bit-equal) on both of its paths
 memory: a 300x200 image), and its retry-plane entry against the eager
 hash and sampler at the bench's 4 x 524,288 cells and at the ragged
 batches' cell counts (bit-equal); ragged batches; lane use; the compiles;
-the microbenchmark; the bench's JSON line.  Then one JSON line per the
+the microbenchmark; the bench's JSON line; the library surface (render and
+compile times by CUDA events and the host clock, the eager path beside
+the kernel, the bench's ``--mesh`` JSON line).  Then one JSON line per the
 kernel table (five entries: the four sources, the bokeh source's plane
 entry apart), the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
@@ -62,6 +74,7 @@ It needs a CUDA card and ``nvcc``, and imports nothing of jax.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -75,6 +88,8 @@ import numpy as np
 import torch
 
 BATCH = 4_194_304
+# the library phases' frame: width, height, samples per pixel (BATCH rays)
+FRAME = (2048, 1024, 2)
 MAX_TRIES = 25
 SEED = 20261016
 # kernel vs plain: tries/tir may differ on at most 0.01% of rays (borderline
@@ -880,6 +895,429 @@ def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
     return {"launches": n_roof, "raytraced_launches": n_rt, "result": res}
 
 
+def counts(trace_kernel, bokeh_kernel, rk) -> dict:
+    return {"raytraced": trace_kernel.launches,
+            "thinlens": trace_kernel.thinlens_launches,
+            "bokeh": bokeh_kernel.launches,
+            "bokeh_planes": bokeh_kernel.plane_launches,
+            "roofline": rk.launches}
+
+
+def add_counts(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def events_ms(fn, warmup=2, iters=5) -> float:
+    """Median milliseconds of ``fn()`` between two CUDA events."""
+    return statistics.median(time_ms(lambda: fn(), lambda: (), warmup, iters))
+
+
+def seconds(fn):
+    """``(result, seconds)`` of ``fn()`` with the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stats_lines(cam) -> list:
+    """The lines ``cam.log_stats()`` writes to the ``zoic`` logger."""
+    import logging
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("zoic")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        cam.log_stats()
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return lines
+
+
+def check_rays(name, rays, stats, n, full=True):
+    for f in ("origin", "dir", "weight", "d_ody", "d_ddy"):
+        check(bool(torch.isfinite(getattr(rays, f)).all()),
+              f"{name}: rays.{f} not finite")
+    check(rays.origin.shape == (n, 3), f"{name}: unexpected output shape")
+    if full:
+        check(int(stats.success) + int(stats.vignetted) == n,
+              f"{name}: success + vignetted != {n}")
+
+
+def camera_phase(zt, kernels, bokeh_path, dev, smi, tag):
+    """``Camera`` and ``render`` on the headline at the bench's batch (a
+    2048 x 1024 frame at 2 spp), checked against ``create_rays`` on the
+    same frame samples and seed; then the thin-lens camera with image
+    bokeh and vignetting, and the headline lens with image bokeh, through
+    the same entry points."""
+    trace_kernel, bokeh_kernel, rk = kernels
+    spec = zt.FrameSpec(*FRAME)
+    check(spec.n_samples == BATCH, "the frame is not the bench's batch")
+    cfg = raytraced_config(zt, "headline")
+    cam, compile_s = seconds(lambda: zt.Camera(cfg, dev))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    start = g.get_state()
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    rays, stats = zt.render.render_rays(cam.state, cfg, spec, generator=g)
+    torch.cuda.synchronize()
+    launched = counts(trace_kernel, bokeh_kernel, rk)
+    check(launched["raytraced"] > 0, "render_rays: no raytraced launch")
+    check_rays("render_rays", rays, stats, BATCH)
+    g.set_state(start)
+    samples = zt.render.frame_samples(spec, g)
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    again, stats1 = cam.create_rays(*samples, generator=g)
+    flat, stats2 = cam.create_rays(*samples, seed=SEED % (1 << 22))
+    torch.cuda.synchronize()
+    add_counts(launched, counts(trace_kernel, bokeh_kernel, rk))
+    check(bits_equal((rays.origin, rays.dir, rays.weight),
+                     (again.origin, again.dir, again.weight)),
+          "render_rays and create_rays on the same samples and seed differ")
+    want = [int(getattr(stats1, f)) + int(getattr(stats2, f))
+            for f in ("success", "vignetted", "tir")]
+    totals = cam.stats_totals.tolist()
+    check(cam.stats_totals.dtype == torch.int64 and totals == want,
+          f"Camera totals {totals} != the calls' stats {want}")
+    h, w = spec.height, spec.width
+    # a batch that is not flat runs the kernel once, on the flattened
+    # samples, and gives the flat call's rays in its shape
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    grid, _ = zt.create_rays(cam.state, cfg,
+                             *(a.reshape(h, -1) for a in samples),
+                             seed=SEED % (1 << 22))
+    torch.cuda.synchronize()
+    gc = counts(trace_kernel, bokeh_kernel, rk)
+    add_counts(launched, gc)
+    check(gc["raytraced"] == 1 and grid.dir.shape == (h, BATCH // h, 3),
+          f"[H, W] batch: launches {gc}, shape {tuple(grid.dir.shape)}")
+    check(bits_equal((flat.origin, flat.dir, flat.weight),
+                     (grid.origin.reshape(-1, 3), grid.dir.reshape(-1, 3),
+                      grid.weight.reshape(-1))),
+          "an [H, W] batch and the flat call on the same samples differ")
+    del grid
+    img = zt.render.weight_image(spec, rays)
+    check(img.shape == (h, w), f"weight_image shape {img.shape}")
+    centre = float(img[h // 2 - 8:h // 2 + 8, w // 2 - 8:w // 2 + 8].mean())
+    corners = max(float(img[r, c].mean()) for r in (slice(0, 16),
+                                                    slice(-16, None))
+                  for c in (slice(0, 16), slice(-16, None)))
+    check(centre >= corners, f"centre {centre} darker than a corner {corners}")
+    log_lines = stats_lines(cam)
+    render_ms = events_ms(lambda: zt.render.render_rays(
+        cam.state, cfg, spec, generator=g))
+    samples_ms = events_ms(lambda: zt.render.frame_samples(spec, g))
+    print(f"[{tag}a Camera + render headline] compile {compile_s:.2f} s; "
+          f"{spec.width}x{spec.height} at {spec.spp} spp = {BATCH} rays: "
+          f"success {int(stats.success)} vignetted {int(stats.vignetted)}; "
+          f"render_rays == create_rays bit for bit; an [{h}, "
+          f"{BATCH // h}] batch: one raytraced launch, the flat call's bits; "
+          f"weight_image "
+          f"{tuple(img.shape)}, centre {centre:.4f} corners max "
+          f"{corners:.4f}; totals {totals} (int64, on the card); "
+          f"log_stats: {' | '.join(' '.join(ln.split()) for ln in log_lines)}"
+          f"; on {smi}: render_rays {render_ms:.4f} ms, frame_samples "
+          f"{samples_ms:.4f} ms (CUDA events, median of 5)", flush=True)
+
+    others = {}
+    for name, ocfg in (
+            ("thinlens_bokeh_vignette",
+             thinlens_configs(zt, bokeh_path)["thinlens_bokeh_vignette"]),
+            ("raytraced_bokeh_image",
+             raytraced_config(zt, "raytraced_bokeh_image", bokeh_path))):
+        ocam, osecs = seconds(lambda: zt.Camera(ocfg, dev))
+        reset_counts(trace_kernel, bokeh_kernel, rk)
+        orays, ostats = zt.render.render_rays(ocam.state, ocfg, spec,
+                                              generator=g)
+        torch.cuda.synchronize()
+        oc = counts(trace_kernel, bokeh_kernel, rk)
+        add_counts(launched, oc)
+        check_rays(name, orays, ostats, BATCH)
+        kernel = "thinlens" if name.startswith("thin") else "raytraced"
+        check(oc[kernel] > 0 and oc["bokeh"] > 0,
+              f"{name}: launches {oc}")
+        if kernel == "raytraced":
+            check(oc["bokeh_planes"] > 0, f"{name}: no plane launch")
+        ms = events_ms(lambda: zt.render.render_rays(ocam.state, ocfg, spec,
+                                                     generator=g))
+        others[name] = ocam
+        print(f"[{tag}{'bc'[len(others) - 1]} Camera + render {name}] "
+              f"compile {osecs:.2f} s; launches {oc}; success "
+              f"{int(ostats.success)} vignetted {int(ostats.vignetted)}; on "
+              f"{smi}: render_rays {ms:.4f} ms (CUDA events, median of 5)",
+              flush=True)
+    return {"cam": cam, "cfg": cfg, "bokeh_cam": others["raytraced_bokeh_image"],
+            "launches": launched, "compile_s": compile_s,
+            "render_ms": render_ms, "frame_samples_ms": samples_ms}
+
+
+PROFILE_LEAVES = ("keys", "c0", "c1", "c2", "c4", "poly", "poly_scale")
+
+
+def update_phase(zt, kernels, cam, cfg, bokeh_cam, dev, smi, tag):
+    """``Camera.update`` on the card: a bokeh-only change keeps the lens
+    object; an exposure change scales the weights by exactly 1 + e^2; a
+    focal change recompiles, and returning to the original focal gives the
+    first compile's LUT and pre-check leaves bit for bit."""
+    trace_kernel, bokeh_kernel, rk = kernels
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    other = os.path.join(root, "bokeh_disk48.npy")
+    np.save(other, zt.data.bokeh_disk(48))
+    lens_b = bokeh_cam.state.lens
+    bokeh_cam.update(bokeh_cam.config.replace(bokeh_path=other))
+    check(bokeh_cam.state.lens is lens_b and bokeh_cam.state.bokeh.width == 48,
+          "a bokeh-only update recompiled the lens or kept the image")
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    s = draws(g, BATCH, dev)
+    seed = (SEED + 7) % (1 << 22)
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    before, _ = cam.create_rays(*s, seed=seed)
+    e = 0.5
+    cam.update(cfg.replace(exposure_control=e))
+    after, _ = cam.create_rays(*s, seed=seed)
+    torch.cuda.synchronize()
+    launched = counts(trace_kernel, bokeh_kernel, rk)
+    e2 = torch.tensor(e, dtype=torch.float32, device=dev) ** 2
+    check(bits_equal((after.weight,), (before.weight * (1.0 + e2),)),
+          "an exposure update did not scale the weights by 1 + e^2")
+
+    first = cam.state.lens
+    _, s_focal = seconds(lambda: cam.update(cam.config.replace(
+        focal_length=5.5)))
+    check(cam.state.lens is not first
+          and float(cam.state.lens.origin_shift) != float(first.origin_shift),
+          "a focal update did not recompile")
+    _, s_back = seconds(lambda: cam.update(cam.config.replace(
+        focal_length=cfg.focal_length)))
+    lut_equal = bits_equal(
+        [getattr(cam.state.lens.lut, f.name)
+         for f in dataclasses.fields(first.lut)],
+        [getattr(first.lut, f.name) for f in dataclasses.fields(first.lut)])
+    prof_equal = bits_equal(
+        [getattr(cam.state.lens.profile, f) for f in PROFILE_LEAVES],
+        [getattr(first.profile, f) for f in PROFILE_LEAVES])
+    check(lut_equal and prof_equal,
+          "returning to the original focal did not reproduce the LUT and "
+          "pre-check leaves")
+    print(f"[{tag} Camera.update] bokeh-only change keeps the lens object; "
+          f"exposure {e} scales the weights by exactly {float(1 + e2)}; "
+          f"focal 5.0 -> 5.5 recompile {s_focal:.2f} s, -> 5.0 recompile "
+          f"{s_back:.2f} s, LUT and pre-check leaves bit-equal to the first "
+          f"compile's; on {smi}", flush=True)
+    cam.update(cfg)
+    return {"launches": launched, "recompile_s": [s_focal, s_back]}
+
+
+def state_io_phase(zt, kernels, cam, cfg, dev, smi, tag):
+    """A saved and reloaded state gives the same bits; ``cached_compile``
+    compiles once and then loads, one file in its directory."""
+    import shutil
+
+    from zoic_tpu_torch.io import state as state_io
+
+    trace_kernel, bokeh_kernel, rk = kernels
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    path = os.path.join(root, "headline_state.npz")
+    state_io.save(path, cam.state)
+    back = state_io.load(path, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    s = draws(g, BATCH, dev)
+    seed = (SEED + 8) % (1 << 22)
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    r1, _ = zt.create_rays(cam.state, cfg, *s, seed=seed)
+    r2, _ = zt.create_rays(back, cfg, *s, seed=seed)
+    torch.cuda.synchronize()
+    launched = counts(trace_kernel, bokeh_kernel, rk)
+    check(bits_equal((r1.origin, r1.dir, r1.weight),
+                     (r2.origin, r2.dir, r2.weight)),
+          "a saved and reloaded state gives other rays")
+    cache = os.path.join(root, "cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    st1, s_compile = seconds(lambda: state_io.cached_compile(cfg, cache, dev))
+    st2, s_load = seconds(lambda: state_io.cached_compile(cfg, cache, dev))
+    files = os.listdir(cache)
+    check(len(files) == 1, f"the cache holds {files}")
+    check(bits_equal((st1.lens.lut.max_scale, st1.lens.profile.c0),
+                     (st2.lens.lut.max_scale, st2.lens.profile.c0)),
+          "the cached state differs from the compiled one")
+    print(f"[{tag} save / load / cached_compile] reloaded state gives the "
+          f"same bits at B = {BATCH}; cached_compile: first (a compile) "
+          f"{s_compile:.2f} s, second (a load) {s_load:.3f} s, {len(files)} "
+          f"file ({os.path.getsize(os.path.join(cache, files[0]))} B); on "
+          f"{smi}", flush=True)
+    return {"launches": launched, "compile_s": s_compile, "load_s": s_load}
+
+
+def spot_rms(lens, curvature, u):
+    """RMS radius of the on-axis spot at the focus distance, as a function
+    of the curvatures (``tests/test_torch_differentiable.py``)."""
+    from zoic_tpu_torch import sampling, trace
+    from zoic_tpu_torch.optics import V3
+
+    lens = dataclasses.replace(
+        lens, curvature=curvature,
+        center=torch.cumsum(lens.thickness, 0) - curvature)
+    lx, ly = sampling.concentric_disk_sample(u[0], u[1])
+    z = torch.zeros_like(u[0])
+    res = trace.trace_stack(
+        lens, V3(z, z, z + lens.origin_shift),
+        V3(lx * lens.user_aperture_radius * 2.0,
+           ly * lens.user_aperture_radius * 2.0, z - lens.thickness[0]))
+    t = (lens.focal_distance - res.origin.z) / res.direction.z
+    hx = res.origin.x + res.direction.x * t
+    hy = res.origin.y + res.direction.y * t
+    w = res.ok.to(torch.float32)
+    return torch.sqrt(((hx * hx + hy * hy) * w).sum()
+                      / torch.clamp_min(w.sum(), 1.0))
+
+
+def eager_phase(zt, kernels, state, dev, smi, tag):
+    """The exact eager path (``impl="jnp"``) on the headline at the bench's
+    batch against the kernel: the first attempt (``max_tries=0``) and the
+    full budget's distributions; then the tessar's spot-RMS gradient by
+    autograd on the card against the CPU's."""
+    trace_kernel, bokeh_kernel, rk = kernels
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    s = draws(g, BATCH, dev)
+    seed = (SEED + 9) % (1 << 22)
+    out = {}
+    for budget in (0, MAX_TRIES):
+        cfg = raytraced_config(zt, "headline").replace(max_tries=budget)
+        ecfg = cfg.replace(impl="jnp")
+        reset_counts(trace_kernel, bokeh_kernel, rk)
+        er, es = zt.create_rays(state, ecfg, *s, seed=seed)
+        torch.cuda.synchronize()
+        check(trace_kernel.launches == 0, "impl='jnp' launched a kernel")
+        kr, ks = zt.create_rays(state, cfg, *s, seed=seed)
+        torch.cuda.synchronize()
+        check_rays(f"eager max_tries {budget}", er, es, BATCH)
+        eok, kok = er.weight > 0, kr.weight > 0
+        agree = float((eok == kok).float().mean())
+        both = eok & kok
+        err = max(float((er.origin - kr.origin)[both].abs().max()),
+                  float((er.dir - kr.dir)[both].abs().max()))
+        att = [1.0 + int(st.tries_total) / BATCH for st in (es, ks)]
+        vig = [int(st.vignetted) / BATCH for st in (es, ks)]
+        if budget == 0:
+            check(agree >= 0.9999, f"eager ok mask agrees on {agree:.6f}")
+            check(err <= PAYLOAD_ATOL, f"eager payloads differ by {err}")
+        else:
+            check(abs(att[0] - att[1]) <= 0.01 * att[1],
+                  f"eager attempts/ray {att[0]} vs kernel {att[1]}")
+            check(abs(vig[0] - vig[1]) <= 0.001,
+                  f"eager vignetted {vig[0]} vs kernel {vig[1]}")
+        e_ms = events_ms(lambda: zt.create_rays(state, ecfg, *s, seed=seed),
+                         warmup=1, iters=3)
+        k_ms = events_ms(lambda: zt.create_rays(state, cfg, *s, seed=seed),
+                         warmup=1, iters=3)
+        out[budget] = {"agree": agree, "err": err, "attempts": att,
+                       "vignetted": vig, "eager_ms": e_ms, "kernel_ms": k_ms}
+        first = (f"ok masks agree on {agree:.6f}, live max |d| {err:.3e} "
+                 f"(limits 0.9999, {PAYLOAD_ATOL}); " if budget == 0 else "")
+        print(f"[{tag}{'ab'[budget > 0]} eager path, max_tries {budget}] "
+              f"B = {BATCH}: {first}attempts/ray eager {att[0]:.6f} kernel "
+              f"{att[1]:.6f}; vignetted eager {vig[0]:.6f} kernel "
+              f"{vig[1]:.6f}; on {smi}: create_rays eager {e_ms:.4f} ms, "
+              f"kernel {k_ms:.4f} ms (CUDA events, median of 3)", flush=True)
+
+    tcfg = zt.CameraConfig(
+        lens_model=zt.LensModel.RAYTRACED,
+        lens_data_path=zt.data.lens_path("tessar_f2.8"),
+        focal_length=5.0, fstop=2.8, focal_distance=100.0,
+        kolb_sampling_lut=False, pupil_precheck=False)
+    u = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(2, 1024)).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        lens = zt.compile_camera(tcfg, d).lens
+        c = lens.curvature.detach().clone().requires_grad_(True)
+        (gc,) = torch.autograd.grad(spot_rms(lens, c, u.to(d)), c)
+        grads.append(gc.cpu())
+    rel = float(torch.linalg.norm(grads[1] - grads[0])
+                / torch.linalg.norm(grads[0]))
+    check(bool(torch.isfinite(grads[1]).all())
+          and float(grads[1].abs().max()) > 0.0, "the card's gradient")
+    check(rel <= 1e-3, f"the card's gradient is {rel:.2e} off the CPU's")
+    print(f"[{tag}c autograd] tessar spot-RMS gradient on the card finite "
+          f"and non-zero, {rel:.2e} relative to the CPU's (limit 1e-3)",
+          flush=True)
+    return {"launches": {}, "rows": out, "grad_rel": rel}
+
+
+def sharding_phase(zt, kernels, state, kind, dev, smi, tag):
+    """Data parallelism: a mesh of one card equals the unsharded call bit
+    for bit at the full budget; two shards on the card equal it at
+    ``max_tries=0``, sum their stats to B and repeat their bits; then the
+    bench's headline with ``--mesh``."""
+    from zoic_tpu_torch import bench
+    from zoic_tpu_torch.parallel import sharding
+
+    trace_kernel, bokeh_kernel, rk = kernels
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    s = draws(g, BATCH, dev)
+    seed = (SEED + 10) % (1 << 22)
+    cfg = raytraced_config(zt, "headline")
+    mesh = sharding.make_mesh()
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    rays, stats = zt.create_rays(state, cfg, *s, seed=seed)
+    srays, sstats = sharding.create_rays_sharded(mesh, state, cfg, *s,
+                                                 seed=seed)
+    cfg0 = cfg.replace(max_tries=0)
+    mesh2 = sharding.make_mesh([dev, dev])
+    one, _ = zt.create_rays(state, cfg0, *s, seed=seed)
+    two, tstats = sharding.create_rays_sharded(mesh2, state, cfg0, *s,
+                                               seed=seed)
+    two_again, _ = sharding.create_rays_sharded(mesh2, state, cfg0, *s,
+                                                seed=seed)
+    torch.cuda.synchronize()
+    launched = counts(trace_kernel, bokeh_kernel, rk)
+    check(bits_equal([getattr(rays, f) for f in ("origin", "dir", "weight",
+                                                 "d_ody", "d_ddy")],
+                     [getattr(srays, f) for f in ("origin", "dir", "weight",
+                                                  "d_ody", "d_ddy")])
+          and int(stats.tries_total) == int(sstats.tries_total),
+          "a mesh of one card differs from the unsharded call")
+    ok = one.weight > 0
+    check(torch.equal(ok, two.weight > 0)
+          and bits_equal((one.dir[ok], one.origin[ok]),
+                         (two.dir[ok], two.origin[ok])),
+          "two shards differ from the unsharded first attempt")
+    check(int(tstats.success) + int(tstats.vignetted) == BATCH,
+          "two shards' stats do not sum to B")
+    check(bits_equal((two.dir, two.origin, two.weight),
+                     (two_again.dir, two_again.origin, two_again.weight)),
+          "two runs of the two-shard mesh differ")
+    print(f"[{tag}a sharding] make_mesh() = {[str(d) for d in mesh.devices]}"
+          f": equal to the unsharded call bit for bit at max_tries "
+          f"{MAX_TRIES}; two shards on {dev} equal it at max_tries 0, stats "
+          f"sum to {BATCH}, two runs bit-equal", flush=True)
+
+    buf = io.StringIO()
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    with contextlib.redirect_stdout(buf):
+        bench.main([*BENCH_ARGS, "--mesh"])
+    add_counts(launched, counts(trace_kernel, bokeh_kernel, rk))
+    line = buf.getvalue().strip().splitlines()[-1]
+    res = json.loads(line)
+    check(res["device"] == kind and math.isfinite(res["value"])
+          and res["value"] > 0, f"bench --mesh: {res}")
+    print(line, flush=True)
+    print(f"[{tag}b bench --mesh] {' '.join(BENCH_ARGS)} --mesh on "
+          f"{mesh.size} card(s): {res['metric']} {res['value']:.4e} rays/s, "
+          f"attempts/ray {res['attempts_per_ray']:.6f}, on {smi}", flush=True)
+    return {"launches": launched, "mesh_rays_per_sec": res["value"],
+            "metric": res["metric"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: torch.cuda.is_available() is "
@@ -890,6 +1328,7 @@ def main() -> None:
     from zoic_tpu_torch.tools import roofline
     from zoic_tpu_torch.utils import profiling
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -963,6 +1402,25 @@ def main() -> None:
                           "25")
     bn = bench_phase(trace_kernel, bokeh_kernel, roofline_kernel, kind, "26")
 
+    # ---- the library surface: Camera and render, update, state files and
+    # the compile cache, the eager path, data parallelism
+    kernels = (trace_kernel, bokeh_kernel, roofline_kernel)
+    t_surface = time.perf_counter()
+    surface = {"camera": camera_phase(zt, kernels, bokeh_path, dev, smi, "27")}
+    cam, cam_cfg = surface["camera"]["cam"], surface["camera"]["cfg"]
+    surface["update"] = update_phase(zt, kernels, cam, cam_cfg,
+                                     surface["camera"]["bokeh_cam"], dev, smi,
+                                     "28")
+    surface["state_io"] = state_io_phase(zt, kernels, cam, cam_cfg, dev, smi,
+                                         "29")
+    surface["eager"] = eager_phase(zt, kernels, state, dev, smi, "30")
+    surface["sharding"] = sharding_phase(zt, kernels, state, kind, dev, smi,
+                                         "31")
+    more = {}
+    for r in surface.values():
+        add_counts(more, r["launches"])
+    surface_s = time.perf_counter() - t_surface
+
     from zoic_tpu_torch.bench import USEFUL_OPS_PER_RAY
 
     rep = thin["thinlens_f1.4"]
@@ -975,7 +1433,8 @@ def main() -> None:
         "route": "cuda",
         "source": "zoic_tpu_torch/csrc/raytraced.cu",
         "replaces": "zoic_tpu/ops/trace_kernel.py:975",
-        "launches": sum(r["launches"] for r in rt.values()),
+        "launches": (sum(r["launches"] for r in rt.values())
+                     + more["raytraced"]),
         "max_abs_err": max(r["max_abs_err"] for r in rt.values()),
         "ms": head["kernel_ms"],
         "device_ms": head["device_ms"],
@@ -990,7 +1449,8 @@ def main() -> None:
         "route": "cuda",
         "source": "zoic_tpu_torch/csrc/thinlens.cu",
         "replaces": "zoic_tpu/ops/trace_kernel.py:1381",
-        "launches": sum(r["thinlens_launches"] for r in thin.values()),
+        "launches": (sum(r["thinlens_launches"] for r in thin.values())
+                     + more["thinlens"]),
         "max_abs_err": max(r["max_abs_err"] for r in thin.values()),
         "ms": rep["kernel_ms"],
         "device_ms": rep["device_ms"],
@@ -1005,7 +1465,8 @@ def main() -> None:
         "source": "zoic_tpu_torch/csrc/bokeh.cu",
         "replaces": "zoic_tpu/ops/bokeh_kernel.py:101",
         "launches": (sum(r["bokeh_launches"] for r in thin.values())
-                     + sum(r["bokeh_launches"] for r in rt.values())),
+                     + sum(r["bokeh_launches"] for r in rt.values())
+                     + more["bokeh"]),
         "max_abs_err": bk["max_abs_err"],
         "ms": bk["kernel_ms"],
         "device_ms": bk["device_ms"],
@@ -1019,7 +1480,8 @@ def main() -> None:
         "route": "cuda",
         "source": "zoic_tpu_torch/csrc/bokeh.cu",
         "replaces": "zoic_tpu/models/raytraced.py:225",
-        "launches": sum(r["plane_launches"] for r in rt.values()),
+        "launches": (sum(r["plane_launches"] for r in rt.values())
+                     + more["bokeh_planes"]),
         "max_abs_err": bpl["max_abs_err"],
         "ms": bpl["kernel_ms"],
         "device_ms": bpl["device_ms"],
@@ -1033,7 +1495,7 @@ def main() -> None:
         "route": "cuda",
         "source": "zoic_tpu_torch/csrc/roofline.cu",
         "replaces": "tools/roofline.py:83",
-        "launches": bn["launches"],
+        "launches": bn["launches"] + more["roofline"],
         "max_abs_err": roof["max_abs_err"],
         "ms": roof["ms"],
         "device_ms": roof["device_ms"],
@@ -1048,7 +1510,7 @@ def main() -> None:
           and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,
           "the bokeh configs launched no bokeh kernel or plane entry")
 
-    print("[27 compile and roofline summary] " + json.dumps({
+    print("[32 summary] " + json.dumps({
         "compile_s": {n: r["compile_s"] for n, r in comp.items()},
         "mc_statics_equal": {n: r["mc_statics_equal"]
                              for n, r in comp.items()},
@@ -1061,6 +1523,22 @@ def main() -> None:
         "lanes_per_warp_trace": {n: r["lanes_per_warp_trace"]
                                  for n, r in lanes.items()
                                  if "lanes_per_warp_trace" in r},
+        "seconds": {"script": time.perf_counter() - t_script,
+                    "phases_27_31": surface_s},
+        "surface": {
+            "launches": more,
+            "camera_compile_s": surface["camera"]["compile_s"],
+            "render_ms": surface["camera"]["render_ms"],
+            "frame_samples_ms": surface["camera"]["frame_samples_ms"],
+            "recompile_s": surface["update"]["recompile_s"],
+            "cached_compile_s": [surface["state_io"]["compile_s"],
+                                 surface["state_io"]["load_s"]],
+            "eager_vs_kernel_ms": {
+                b: [r["eager_ms"], r["kernel_ms"]]
+                for b, r in surface["eager"]["rows"].items()},
+            "grad_rel": surface["eager"]["grad_rel"],
+            "mesh_rays_per_sec": surface["sharding"]["mesh_rays_per_sec"],
+        },
     }), flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -5,8 +5,9 @@ times ``create_rays``; on the card it reports rays/s.  Here it runs the
 plain versions at ``--batch 4096 --iters 1 --inner 1 --device cpu``, which
 checks the flow and the output, not a speed: one parseable JSON line with
 ``bench.py``'s keys and the device it ran on; ``--all --only thinlens``
-runs the three thin-lens cameras; ``--mesh`` names the ROADMAP item that
-would port it.  The raster screen samples equal ``bench.py``'s.
+runs the three thin-lens cameras; ``--mesh`` splits the headline's batch
+over a mesh (of the CPU here, once or twice).  The raster screen samples
+equal ``bench.py``'s.
 """
 
 import json
@@ -17,6 +18,7 @@ import pytest
 
 import bench as jax_bench
 from zoic_tpu_torch import bench
+from _torch_threads import one_thread  # noqa: F401
 
 SMALL = ["--batch", "4096", "--iters", "1", "--inner", "1", "--device", "cpu"]
 KEYS = {"metric", "value", "unit", "vs_baseline", "attempts_per_ray",
@@ -51,9 +53,35 @@ def test_all_only_thinlens(capsys):
                      "thinlens_bokeh_image"]
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        bench.main(SMALL + ["--mesh"])
+def _headline_line(capsys):
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert len(lines) == 1
+    return json.loads(lines[0])
+
+
+def test_mesh_is_not_ported(capsys):
+    """``--mesh`` is ported: on the CPU the mesh is the one device, and a
+    mesh of one reports under the single-card metric, as ``bench.py``
+    does."""
+    bench.main(SMALL + ["--mesh", "--no-precheck"])
+    res = _headline_line(capsys)
+    assert set(res) == KEYS and res["device"] == "cpu"
+    assert res["metric"] == bench.METRIC
+    assert res["vs_baseline"] == pytest.approx(res["value"] / 1e9)
+    assert 1.0 <= res["attempts_per_ray"] <= 3.0
+
+
+def test_mesh_of_two(capsys, monkeypatch):
+    """A mesh of two devices reports ``bench.py``'s mesh metric, its
+    ``vs_baseline`` per device."""
+    monkeypatch.setattr(bench.sharding, "make_mesh",
+                        lambda devices=None: bench.sharding.Mesh(["cpu"] * 2))
+    bench.main(SMALL + ["--mesh", "--no-precheck"])
+    res = _headline_line(capsys)
+    assert res["metric"] == "camera_rays_per_sec_mesh2_double_gauss"
+    assert res["vs_baseline"] == pytest.approx(res["value"] / 2 / 1e9)
+    assert 1.0 <= res["attempts_per_ray"] <= 3.0
+    assert 0.0 <= res["vignetted_frac"] < 0.01
 
 
 def test_cameras_are_bench_py_s():

@@ -547,3 +547,152 @@ def test_profiling_trace_records_the_card(cuda_dev, tmp_path):
     names = [e.key for e in prof.key_averages()
              if getattr(e, "device_time_total", 0) > 0]
     assert any("raytraced" in n for n in names), names
+
+
+def _headline_cfg(**kw):
+    return zpt.CameraConfig(
+        lens_model=zpt.LensModel.RAYTRACED,
+        lens_data_path=zpt.data.lens_path("double_gauss_f2.0"),
+        focal_length=5.0, fstop=2.0, focal_distance=100.0, **kw)
+
+
+@pytest.mark.cuda
+def test_eager_path_matches_kernel_on_card(cuda_state):
+    """``impl="jnp"`` runs the eager path on the card: its first attempt
+    (``max_tries=0``) agrees with the kernel's on 99.99% of the ok mask and
+    within 1e-5 on rays alive in both; no kernel launches."""
+    cfg = _headline_cfg(max_tries=0)
+    s = _inputs(100_000, seed=21)
+    before = tk.launches
+    er, _ = zpt.create_rays(cuda_state, dataclasses.replace(cfg, impl="jnp"),
+                            *s, seed=3)
+    torch.cuda.synchronize()
+    assert tk.launches == before
+    kr, _ = zpt.create_rays(cuda_state, cfg, *s, seed=3)
+    eok, kok = er.weight > 0, kr.weight > 0
+    assert int((eok != kok).sum()) <= 10
+    both = eok & kok
+    assert float((er.dir - kr.dir)[both].abs().max()) <= 1e-5
+    assert float((er.origin - kr.origin)[both].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_grid_batch_runs_the_kernel_on_card(cuda_state):
+    """An [H, W] batch on the card is one raytraced launch on the
+    flattened samples, and gives the flat call's bits in its shape."""
+    cfg = _headline_cfg(max_tries=25)
+    s = _inputs(256 * 384, seed=22)
+    flat, fstats = zpt.create_rays(cuda_state, cfg, *s, seed=5)
+    before = tk.launches
+    grid, gstats = zpt.create_rays(cuda_state, cfg,
+                                   *(a.reshape(256, 384) for a in s), seed=5)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 1
+    assert grid.dir.shape == (256, 384, 3) and grid.weight.shape == (256, 384)
+    for f in ("origin", "dir", "weight", "d_ody", "d_ddy"):
+        assert torch.equal(getattr(grid, f).reshape(getattr(flat, f).shape),
+                           getattr(flat, f))
+    assert int(gstats.tries_total) == int(fstats.tries_total)
+
+
+@pytest.mark.cuda
+def test_camera_render_and_state_io_on_card(cuda_dev, tmp_path):
+    """``Camera`` compiles on the card; ``render_rays`` is ``create_rays``
+    on ``frame_samples`` from one generator, bit for bit; a saved and
+    reloaded state gives the same bits; the stats totals stay on the card
+    and sum the calls' stats."""
+    cfg = _headline_cfg(pupil_precheck=False)
+    cam = zpt.Camera(cfg)
+    assert cam.state.device.type == "cuda" and cam.stats_totals.is_cuda
+    spec = zpt.FrameSpec(256, 128, spp=2)
+    g = torch.Generator(device=cuda_dev).manual_seed(4)
+    rays, stats = zpt.render.render_rays(cam.state, cfg, spec, g)
+    g = torch.Generator(device=cuda_dev).manual_seed(4)
+    s = zpt.render.frame_samples(spec, g)
+    again, _ = cam.create_rays(*s, generator=g)
+    for f in ("origin", "dir", "weight"):
+        assert torch.equal(getattr(rays, f), getattr(again, f))
+    assert zpt.render.weight_image(spec, rays).shape == (128, 256)
+    path = str(tmp_path / "cam.npz")
+    zpt.io.state.save(path, cam.state)
+    back = zpt.io.state.load(path)
+    r2, _ = zpt.create_rays(back, cfg, *s, seed=9)
+    r1, _ = zpt.create_rays(cam.state, cfg, *s, seed=9)
+    assert torch.equal(r1.dir, r2.dir) and torch.equal(r1.weight, r2.weight)
+    assert cam.stats_totals.tolist()[:2] == [int(stats.success),
+                                             int(stats.vignetted)]
+
+
+@pytest.mark.cuda
+def test_mesh_on_card(cuda_state):
+    """A mesh of one card equals the plain call bit for bit at the full
+    budget; two shards on one card equal it at ``max_tries=0`` and give
+    the same bits twice."""
+    from zoic_tpu_torch.parallel import sharding
+
+    cfg = _headline_cfg()
+    s = _inputs(65_536, seed=22)
+    rays, stats = zpt.create_rays(cuda_state, cfg, *s, seed=7)
+    srays, sstats = sharding.create_rays_sharded(sharding.make_mesh(),
+                                                 cuda_state, cfg, *s, seed=7)
+    for f in ("origin", "dir", "weight", "d_ody", "d_ddy"):
+        assert torch.equal(getattr(rays, f), getattr(srays, f))
+    assert int(stats.tries_total) == int(sstats.tries_total)
+    cfg0 = _headline_cfg(max_tries=0)
+    mesh2 = sharding.make_mesh(["cuda:0", "cuda:0"])
+    one, _ = zpt.create_rays(cuda_state, cfg0, *s, seed=7)
+    two, tstats = sharding.create_rays_sharded(mesh2, cuda_state, cfg0, *s,
+                                               seed=7)
+    two_again, _ = sharding.create_rays_sharded(mesh2, cuda_state, cfg0, *s,
+                                                seed=7)
+    ok = one.weight > 0
+    assert torch.equal(ok, two.weight > 0)
+    assert torch.equal(one.dir[ok], two.dir[ok])
+    assert torch.equal(two.dir, two_again.dir)
+    assert int(tstats.success) + int(tstats.vignetted) == 65_536
+
+
+def _spot_rms(lens, curvature, u):
+    """RMS radius of the on-axis spot at the focus distance, as a function
+    of the curvatures (``tests/test_torch_differentiable.py``)."""
+    from zoic_tpu_torch import sampling, trace
+    from zoic_tpu_torch.optics import V3
+
+    lens = dataclasses.replace(
+        lens, curvature=curvature,
+        center=torch.cumsum(lens.thickness, 0) - curvature)
+    lx, ly = sampling.concentric_disk_sample(u[0], u[1])
+    z = torch.zeros_like(u[0])
+    res = trace.trace_stack(
+        lens, V3(z, z, z + lens.origin_shift),
+        V3(lx * lens.user_aperture_radius * 2.0,
+           ly * lens.user_aperture_radius * 2.0, z - lens.thickness[0]))
+    t = (lens.focal_distance - res.origin.z) / res.direction.z
+    hx = res.origin.x + res.direction.x * t
+    hy = res.origin.y + res.direction.y * t
+    w = res.ok.to(torch.float32)
+    return torch.sqrt(((hx * hx + hy * hy) * w).sum()
+                      / torch.clamp_min(w.sum(), 1.0))
+
+
+@pytest.mark.cuda
+def test_autograd_on_card(cuda_dev):
+    """The spot RMS's gradient by ``torch.autograd`` through the eager
+    trace on the card: finite, non-zero, within 1e-3 of the CPU's."""
+    cfg = zpt.CameraConfig(
+        lens_model=zpt.LensModel.RAYTRACED,
+        lens_data_path=zpt.data.lens_path("tessar_f2.8"),
+        focal_length=5.0, fstop=2.8, focal_distance=100.0,
+        kolb_sampling_lut=False, pupil_precheck=False)
+    u = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(2, 1024)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda_dev):
+        lens = zpt.compile_camera(cfg, dev).lens
+        c = lens.curvature.detach().clone().requires_grad_(True)
+        loss = _spot_rms(lens, c, u.to(dev))
+        (g,) = torch.autograd.grad(loss, c)
+        grads.append(g.cpu())
+    assert torch.isfinite(grads[1]).all() and float(grads[1].abs().max()) > 0
+    assert float(torch.linalg.norm(grads[1] - grads[0])) <= (
+        1e-3 * float(torch.linalg.norm(grads[0])))

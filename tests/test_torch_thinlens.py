@@ -297,5 +297,10 @@ def test_compile_camera_refuses_raytraced():
 
 
 def test_camera_wrapper_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        zpt.Camera(zpt.CameraConfig(lens_model=zpt.LensModel.THINLENS))
+    """The ``Camera`` wrapper is ported (``tests/test_torch_camera.py``);
+    the part of it that is not, the draw session, refuses ``debug.draw``
+    naming the ROADMAP item that ports it."""
+    cfg = zpt.CameraConfig(lens_model=zpt.LensModel.THINLENS)
+    assert zpt.Camera(cfg, "cpu").state.lens is None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
+        zpt.Camera(cfg.replace(debug=zpt.DebugOptions(draw=True)), "cpu")

@@ -2,7 +2,7 @@
 
     python -m zoic_tpu_torch.bench [--batch 4194304] [--iters 7] [--inner 32]
         [--all] [--only NAMES] [--random-order] [--max-tries N]
-        [--no-precheck] [--device cuda]
+        [--no-precheck] [--mesh] [--device cuda]
 
 Each camera is compiled by the port from its lens file
 (:func:`zoic_tpu_torch.compile_camera`, seconds reported).  The headline is
@@ -14,12 +14,16 @@ bokeh from a 64x64 disk, and the Petzval f/1.25 and telephoto f/5 at focus
 line with ``bench.py``'s keys: ``metric``, ``value`` (rays/s),
 ``unit``, ``vs_baseline`` (value / 1e9, ``bench.py``'s definition),
 ``attempts_per_ray``, ``vignetted_frac``, ``peak_tops`` and ``mfu``, plus
-``device``, the card it ran on.
+``device``, the card it ran on.  ``--mesh`` splits the headline's batch
+over every visible card (:mod:`zoic_tpu_torch.parallel.sharding`); on more
+than one the metric is ``camera_rays_per_sec_mesh{n}_double_gauss`` and
+``vs_baseline`` is per card, as in ``bench.py``.
 
 Method: screen samples in raster order (a renderer's bucket order), fixed;
 lens samples fresh every generation, drawn with ``torch.rand`` on the
 card's generator inside the timed window, as ``bench.py`` draws inside its
-step; a retry seed per generation from a host generator.  Every output is
+step (one generator per card of the mesh); a retry seed per generation
+from a host generator.  Every output is
 consumed (``sum(weight) + sum(dir[:, 0])``).  A burst of ``iters`` steps of
 ``inner`` generations is timed between two CUDA events; the rate is the
 median of 3 bursts after warm-up, and attempts/ray and the vignetted
@@ -48,6 +52,7 @@ import torch
 
 import zoic_tpu_torch as zt
 from zoic_tpu_torch.optics import div
+from zoic_tpu_torch.parallel import sharding
 from zoic_tpu_torch.tools import roofline
 
 # bench.py's work count: ~560 element-ops per traced attempt x ~1.22
@@ -55,6 +60,7 @@ from zoic_tpu_torch.tools import roofline
 USEFUL_OPS_PER_RAY = 560 * 1.22 + 72 * 0.9
 BASELINE_RAYS_PER_SEC = 1e9  # vs_baseline's denominator (bench.py)
 METRIC = "camera_rays_per_sec_chip_double_gauss_f2.0_lut"
+MESH_METRIC = "camera_rays_per_sec_mesh{n}_double_gauss"
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -76,44 +82,67 @@ def screen_samples(n: int, device, raster: bool = True, seed: int = 0):
 
 
 def bench_config(cfg: zt.CameraConfig, n: int, iters: int, inner: int = 16,
-                 warmup: int = 2, raster: bool = True,
-                 device="cuda") -> dict:
+                 warmup: int = 2, raster: bool = True, device="cuda",
+                 mesh: sharding.Mesh = None) -> dict:
     """Compile ``cfg`` on ``device`` and time ``create_rays`` at batch
-    ``n``.  Returns rays/s, attempts/ray, the vignetted fraction and the
-    compile's seconds."""
-    dev = torch.device(device)
+    ``n``, or, with a ``mesh``, the batch split over its devices (compiled
+    on the first).  Returns rays/s, attempts/ray, the vignetted fraction
+    and the compile's seconds."""
+    devs = (torch.device(device),) if mesh is None else mesh.devices
+    dev = devs[0]
     cuda = dev.type == "cuda"
 
     def sync():
         if cuda:
-            torch.cuda.synchronize(dev)
+            for d in set(devs):
+                torch.cuda.synchronize(d)
 
     t0 = time.perf_counter()
     state = zt.compile_camera(cfg, dev)
     sync()
     compile_s = time.perf_counter() - t0
+    if n % len(devs):
+        raise ValueError(f"batch {n} not divisible by mesh size {len(devs)}")
+    per = n // len(devs)
     sx, sy = screen_samples(n, dev, raster=raster)
-    # lens samples from the card's generator (torch.rand, a few fused
+    if mesh is not None:
+        sx, sy = sharding.shard_samples(mesh, sx, sy)
+    # lens samples from each card's generator (torch.rand, a few fused
     # launches); bench.py's murmur3 draws were chosen for the TPU's
     # threefry cost, and the port's hash_uniform is an eager int64 chain of
     # some 40 launches that would time the sampler, not the camera
-    g = torch.Generator(device=dev).manual_seed(42)
+    gens = [torch.Generator(device=d).manual_seed(42 + k)
+            for k, d in enumerate(devs)]
     seeds = torch.randint(0, 1 << 22, ((warmup + 3 * iters) * inner,),
                           generator=torch.Generator().manual_seed(42)).tolist()
+
+    def draws():
+        return [torch.rand(per, generator=g, device=d)
+                for g, d in zip(gens, devs)]
 
     def step(k):
         acc = torch.zeros((), dtype=torch.float32, device=dev)
         vig = torch.zeros((), dtype=torch.int64, device=dev)
         tri = torch.zeros((), dtype=torch.int64, device=dev)
         for i in range(inner):
-            u1 = torch.rand(n, generator=g, device=dev)
-            u2 = torch.rand(n, generator=g, device=dev)
-            rays, stats = zt.create_rays(state, cfg, sx, sy, u1, u2,
-                                         seed=seeds[k * inner + i])
-            # consume the outputs, as bench.py does
-            acc = acc + rays.weight.sum() + rays.dir[:, 0].sum()
-            vig = vig + stats.vignetted
-            tri = tri + stats.tries_total
+            seed = seeds[k * inner + i]
+            # consume the outputs, as bench.py does; without --mesh no
+            # detour through the mesh: the loop is host-bound, and a mesh of
+            # one card cost the headline 11% (NVIDIA H100 80GB HBM3, 700 W)
+            if mesh is None:
+                u1 = torch.rand(n, generator=gens[0], device=dev)
+                u2 = torch.rand(n, generator=gens[0], device=dev)
+                rays, stats = zt.create_rays(state, cfg, sx, sy, u1, u2,
+                                             seed=seed)
+                acc = acc + rays.weight.sum() + rays.dir[:, 0].sum()
+                vig = vig + stats.vignetted
+                tri = tri + stats.tries_total
+                continue
+            for rays, stats in sharding.create_rays_shards(
+                    mesh, state, cfg, sx, sy, draws(), draws(), seed=seed):
+                acc = acc + (rays.weight.sum() + rays.dir[:, 0].sum()).to(dev)
+                vig = vig + stats.vignetted.to(dev)
+                tri = tri + stats.tries_total.to(dev)
         return acc, vig, tri
 
     for k in range(warmup):
@@ -131,6 +160,7 @@ def bench_config(cfg: zt.CameraConfig, n: int, iters: int, inner: int = 16,
         for i in range(iters):
             outs.append(step(warmup + rep * iters + i))
         if cuda:
+            # the sums gathered on the first card wait for every card
             e1.record()
             e1.synchronize()
             dt = e0.elapsed_time(e1) / 1e3
@@ -202,7 +232,7 @@ def main(argv=None) -> None:
     ap.add_argument("--random-order", action="store_true",
                     help="shuffled sample order instead of raster order")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the batch over every card (not ported)")
+                    help="split the headline's batch over every card")
     ap.add_argument("--all", action="store_true",
                     help="run all the benchmark's cameras")
     ap.add_argument("--only", type=str, default="",
@@ -215,12 +245,6 @@ def main(argv=None) -> None:
                     help="disable the headline's pupil pre-check")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (data parallelism over several cards, "
-            "zoic_tpu/parallel/sharding.py) is not ported: ROADMAP Queue 1 "
-            "item 7"
-        )
     if args.only:
         args.all = True  # --only filters the --all table
     dev = torch.device(args.device)
@@ -258,14 +282,19 @@ def main(argv=None) -> None:
 
     if args.only and "headline" not in args.only:
         return
+    mesh = None
+    if args.mesh:
+        mesh = (sharding.make_mesh() if dev.type == "cuda"
+                else sharding.make_mesh([dev]))
+    n_dev = 1 if mesh is None else mesh.size
     res = bench_config(headline, args.batch, args.iters, args.inner,
-                       raster=not args.random_order, device=dev)
+                       raster=not args.random_order, device=dev, mesh=mesh)
     print(f"  headline: compile {res['compile_s']:.2f} s", file=sys.stderr)
     print(json.dumps({
-        "metric": METRIC,
+        "metric": METRIC if n_dev == 1 else MESH_METRIC.format(n=n_dev),
         "value": res["rays_per_sec"],
         "unit": "rays/sec",
-        "vs_baseline": res["rays_per_sec"] / BASELINE_RAYS_PER_SEC,
+        "vs_baseline": res["rays_per_sec"] / n_dev / BASELINE_RAYS_PER_SEC,
         "attempts_per_ray": res["attempts_per_ray"],
         "vignetted_frac": res["vignetted_frac"],
         "peak_tops": peak / 1e12,

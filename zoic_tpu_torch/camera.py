@@ -1,14 +1,15 @@
 """Top-level camera API of the port: set-up and batched ray generation.
 
-Counterparts of ``zoic_tpu.camera.compile_camera`` and
-``zoic_tpu.camera.create_rays``; both models run end to end without JAX.
-:func:`compile_camera` computes the THINLENS scalars and builds the bokeh
-image on the host, and for RAYTRACED runs the lens compile from the lens
-file (parse, solve, the iris probe, the exit-pupil LUT and the pupil
-pre-check) on the camera's device.  A state the JAX package compiled still
-loads with :func:`zoic_tpu_torch.load_state`; the shipped ones are the
-parity anchor of this compile.  The ``Camera`` wrapper is not ported yet
-(ROADMAP Queue 1 item 7).
+Counterparts of ``zoic_tpu/camera.py``: :func:`compile_camera` (the
+reference's ``node_update``, src/zoic.cpp:1575-1720), :func:`create_rays`
+(``camera_create_ray``, zoic.cpp:1752-1990) and :class:`Camera`, the
+stateful wrapper with the reference's change keys and run stats
+(``node_finish``, zoic.cpp:1723-1745).  :func:`compile_camera` computes the
+THINLENS scalars and builds the bokeh image on the host, and for RAYTRACED
+runs the lens compile from the lens file (parse, solve, the iris probe, the
+exit-pupil LUT and the pupil pre-check) on the camera's device.  A state
+the JAX package compiled still loads with :func:`zoic_tpu_torch.load_state`;
+the shipped ones are the parity anchor of this compile.
 """
 
 from __future__ import annotations
@@ -175,17 +176,6 @@ def compile_camera(
     return state.to(dev)
 
 
-class Camera:
-    """The stateful wrapper of ``zoic_tpu.Camera`` (caches, the
-    ``update`` split, run stats, the draw session) is not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "zoic_tpu_torch.Camera (zoic_tpu/camera.py:212) is not ported: "
-            "ROADMAP Queue 1 item 7; use compile_camera and create_rays"
-        )
-
-
 def create_rays(
     state: CameraState,
     config: CameraConfig,
@@ -197,14 +187,16 @@ def create_rays(
     seed: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[RayBatch, RayStats]:
-    """Map flat ``[B]`` (screen-UV, lens-UV) samples to rays.
+    """Map (screen-UV, lens-UV) samples to rays.
 
     ``sx, sy`` span [-1, 1] and ``lensx, lensy`` [0, 1], all float32 on the
-    state's device.  The retry draws are keyed by ``seed``, an int in
-    ``[0, 2**22)``, or by one drawn from ``generator``; one of the two is
-    required.  Strided inputs (columns of a ``[B, 2]`` sample tensor) are
-    copied once here: the kernels read theirs in place.  Returns
-    ``(RayBatch, RayStats)``."""
+    state's device.  Flat ``[B]`` samples run the camera kernels unless
+    ``config.impl == "jnp"``; that, or a batch of any other shape, runs the
+    exact eager path (``models/``).  The retry draws are keyed by ``seed``,
+    an int in ``[0, 2**22)``, or by one drawn from ``generator``; one of
+    the two is required.  Strided inputs (columns of a ``[B, 2]`` sample
+    tensor) are copied once here: the kernels read theirs in place.
+    Returns ``(RayBatch, RayStats)``."""
     dev = state.device
     sx, sy, lensx, lensy = (
         torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
@@ -216,3 +208,109 @@ def create_rays(
     return raytraced.create_rays(
         state, config, sx, sy, lensx, lensy, seed=seed, generator=generator
     )
+
+
+def _refuse_draw(config: CameraConfig) -> None:
+    if config.debug.draw:
+        raise NotImplementedError(
+            "debug.draw (the ray-diagram session of zoic_tpu/diag) is not "
+            "ported: ROADMAP Queue 1 item 7c"
+        )
+
+
+class Camera:
+    """Stateful wrapper with the reference's caching behaviour
+    (``zoic_tpu.Camera``): the compiled state on ``device``, the
+    :meth:`update` split by change key, and the run stats of every
+    :meth:`create_rays` call, summed on the device as the int64 tensor
+    :attr:`stats_totals` ``(success, vignetted, tir)`` and read by
+    :meth:`log_stats`.
+
+    The compile's draws come from ``generator`` or ``uniforms`` as in
+    :func:`compile_camera` (a generator seeded 0 when neither is given).
+    The generator's state is kept at construction, so a recompile by
+    :meth:`update` draws what the first compile drew.  ``debug.draw``
+    raises: the draw session is not ported."""
+
+    def __init__(self, config: CameraConfig, device="cuda", *,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[Mapping] = None):
+        _refuse_draw(config)
+        self.config = config
+        self.device = torch.device(device)
+        self._uniforms = uniforms
+        self._draws = (None if generator is None
+                       else (generator.device, generator.get_state()))
+        self.state = self._compile(config)
+        self._lens_key = config.lens_key()
+        self.stats_totals = torch.zeros(3, dtype=torch.int64,
+                                        device=self.state.device)
+
+    def _compile(self, config: CameraConfig) -> CameraState:
+        generator = None
+        if self._draws is not None:
+            generator = torch.Generator(device=self._draws[0])
+            generator.set_state(self._draws[1])
+        return compile_camera(config, self.device, generator=generator,
+                              uniforms=self._uniforms)
+
+    def update(self, config: CameraConfig) -> None:
+        """Re-run set-up only for what changed, by the reference's two
+        change keys (zoic.cpp:595-611): a change of the bokeh image alone
+        reloads the image and keeps the compiled lens object (the solve
+        never reads the image); a change of the solve's inputs recompiles
+        with the camera's original draws.  The exposure and the empirical
+        vignetting parameters, read per ray by the reference (zoic.cpp:1802,
+        1980), are refreshed every time."""
+        _refuse_draw(config)
+        if config.lens_key() != self._lens_key:
+            if config.solve_key() == self.config.solve_key():
+                image = _load_bokeh(config)
+                self.state = dataclasses.replace(
+                    self.state,
+                    bokeh=None if image is None else image.to(self.device))
+            else:
+                self.state = self._compile(config)
+            self._lens_key = config.lens_key()
+        else:
+            log.warning("[ZOIC] Skipping raytraced node update, parameters "
+                        "didn't change.")
+
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=self.device)
+
+        self.state = dataclasses.replace(
+            self.state,
+            exposure_control=f32(config.exposure_control),
+            ov_distance=f32(config.optical_vignetting_distance),
+            ov_radius=f32(config.optical_vignetting_radius),
+        )
+        self.config = config
+
+    def create_rays(self, sx: Tensor, sy: Tensor, lensx: Tensor,
+                    lensy: Tensor, *, seed: Optional[int] = None,
+                    generator: Optional[torch.Generator] = None,
+                    ) -> Tuple[RayBatch, RayStats]:
+        """:func:`create_rays` on the camera's state and config; the call's
+        stats are added to :attr:`stats_totals` on the device, with no read
+        back."""
+        rays, stats = create_rays(self.state, self.config, sx, sy, lensx,
+                                  lensy, seed=seed, generator=generator)
+        self.stats_totals += torch.stack(
+            [stats.success, stats.vignetted, stats.tir]).to(torch.int64)
+        return rays, stats
+
+    def finish(self) -> None:
+        """The ``node_finish`` flow (zoic.cpp:1723-1745): log the run
+        stats."""
+        self.log_stats()
+
+    def log_stats(self) -> None:
+        """The ``node_finish`` report (zoic.cpp:1729-1732)."""
+        ok, vig, tir = self.stats_totals.tolist()
+        log.info("%-40s %12d", "[ZOIC] Succesful rays", ok)
+        log.info("%-40s %12d", "[ZOIC] Vignetted rays", vig)
+        denom = float(ok + vig)
+        pct = (vig / denom * 100.0) if denom else 0.0
+        log.info("%-40s %12.8f", "[ZOIC] Vignetted Percentage", pct)
+        log.info("%-40s %12d", "[ZOIC] Total internal reflection cases", tir)

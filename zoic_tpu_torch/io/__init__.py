@@ -1,3 +1,3 @@
-"""Serialization: reading compiled-camera state files."""
+"""Serialization: compiled-camera state files and the compile cache."""
 
 from . import state  # noqa: F401

@@ -1,3 +1,3 @@
-"""Camera ray-generation models (raytraced)."""
+"""Camera ray-generation models (raytraced and thin lens)."""
 
-from . import common, raytraced  # noqa: F401
+from . import common, raytraced, thinlens  # noqa: F401

@@ -13,7 +13,15 @@ Port of what ``zoic_tpu.compile_camera`` reaches in ``zoic_tpu/pupil.py``:
   then the JAX package's numpy float64 fits of the harmonic polar bound and
   the 2-circle cover, held-out loosening, the tighter form kept, and its
   polynomial form (:func:`fit_profile_poly`, :func:`_poly_interval_max`);
-* :func:`dead_film_fraction`.
+* :func:`dead_film_fraction`;
+
+and what the exact eager path and the tests reach:
+
+* :func:`lut_shaping` and :func:`shape_sample` — the LUT shaping transform;
+* :func:`build_profile` — the harmonic bound fitted alone (no reference
+  equivalent; the compile fits it inside :func:`build_precheck`);
+* :func:`profile_poly_eval` and :func:`precheck_pass` — the pre-check's
+  evaluation, the kernels' math written out.
 
 The traces run in PyTorch on the lens's device.  The host fits are copies of
 the reference's numpy code: given equal acceptance masks they give equal
@@ -159,6 +167,163 @@ def profile_lookup(profile: PupilProfile, dist: Tensor):
     i_lb, i_prev, perc = _bracket(profile.keys, dist)
     return tuple(optics.lerp(perc, c[i_lb], c[i_prev])
                  for c in (profile.c0, profile.c1, profile.c2, profile.c4))
+
+
+def lut_shaping(lut: PupilLUT, film_x: Tensor, film_y: Tensor):
+    """The LUT shaping's per-film-point constants (zoic.cpp:1891-1911):
+    ``(max_scale * 1.05, centroid_x, fastSin(theta), fastCos(theta))`` with
+    ``theta = atan2(film_y, film_x)``."""
+    dist = torch.abs(optics.sqrt(film_x * film_x + film_y * film_y))
+    max_scale, translation = lut_lookup(lut, dist)
+    theta = torch.atan2(film_y, film_x)
+    return max_scale, translation, optics.fast_sin(theta), optics.fast_cos(theta)
+
+
+def shape_sample(lut: PupilLUT, lens_x: Tensor, lens_y: Tensor,
+                 film_x: Tensor, film_y: Tensor) -> Tuple[Tensor, Tensor]:
+    """Apply the LUT shaping to unit-disk samples for film points
+    (``zoic_tpu.pupil.shape_sample``, zoic.cpp:1891-1924): scale to the
+    interpolated pupil bound, translate x by the interpolated centroid,
+    rotate by ``atan2(y, x)`` with the reference's fastSin/fastCos."""
+    max_scale, translation, s, c = lut_shaping(lut, film_x, film_y)
+    lx = lens_x * max_scale + translation
+    ly = lens_y * max_scale
+    return lx * c - ly * s, lx * s + ly * c
+
+
+def _polar_offsets(u: Tensor, domain: str):
+    """Unit-domain cover offsets ``(lx, ly, rho, phi)`` from uniforms ``u``
+    of shape ``(2, ...)``: uniform over the [-1, 1] square, or over the unit
+    disk (support coverage, not importance)."""
+    if domain == "square":
+        lx = u[0] * 2.0 - 1.0
+        ly = u[1] * 2.0 - 1.0
+        return lx, ly, optics.sqrt(lx * lx + ly * ly), torch.atan2(ly, lx)
+    rho = optics.sqrt(u[0])
+    phi = (u[1] * 2.0 - 1.0) * f32(np.pi)
+    return rho * optics.cos(phi), rho * optics.sin(phi), rho, phi
+
+
+def build_profile(
+    lens: LensSystem,
+    n_angles: int = 16,
+    n_samples: int = 50_000,
+    domain: str = "disk",
+    *,
+    uniforms: Optional[Mapping] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[PupilProfile, Tensor]:
+    """The harmonic polar outer bound of the accepted-sample support per
+    LUT film-radius key (``zoic_tpu.pupil.build_profile``), fitted alone:
+    per-angle-bin maximum accepted radius, least squares on the cos
+    {0, 1, 2, 4} basis shifted up by its worst under-fit plus the (+0.005,
+    x1.01) guard (the naive cover: the rotation-invariant circumradius),
+    then loosened by every violation on an independent held-out set.
+
+    ``domain`` is ``"disk"`` (concentric-map candidates) or ``"square"``
+    (image-bokeh offsets, which reach the corners).  The fit and held-out
+    traces take ``uniforms["fit"]`` and ``uniforms["held"]``, each
+    ``(2, n_keys, n_samples)``, when given, else draw them in that order
+    from ``generator``.  Returns ``(PupilProfile, key_acceptance)``; the
+    polynomial is a zero placeholder (:func:`build_precheck` fits it)."""
+    dev = lens.ior.device
+    lut = lens.lut
+    n_keys = lut.keys.shape[0] if lut is not None else 32
+    keys = (lut.keys if lut is not None
+            else torch.arange(n_keys, dtype=torch.float32, device=dev)
+            * f32(FILM_WIDTH / 32))
+    shape = (2, n_keys, n_samples)
+    u = draw_uniforms(uniforms, "fit", shape, generator, dev)
+    uh = draw_uniforms(uniforms, "held", shape, generator, dev)
+
+    _, _, rho, phi = _polar_offsets(u, domain)
+    ok = _cover_trace(lens, keys, u, domain)[2]
+    key_acceptance = ok.to(torch.float32).mean(1)
+
+    # per-angle-bin max accepted radius
+    two_pi = f32(2.0 * np.pi)
+    bin_idx = torch.clamp(
+        (optics.div(phi + f32(np.pi), two_pi) * n_angles).to(torch.int64),
+        0, n_angles - 1)
+    rho_ok = torch.where(ok, rho, 0.0)
+    rho_max = torch.zeros((n_keys, n_angles), dtype=torch.float32,
+                          device=dev).scatter_reduce(1, bin_idx, rho_ok, "amax")
+
+    if lut is not None:
+        centers = (optics.div(torch.arange(n_angles, dtype=torch.float32,
+                                           device=dev) + 0.5, n_angles)
+                   * two_pi - f32(np.pi))
+        basis = torch.stack([torch.ones_like(centers), optics.cos(centers),
+                             optics.cos(2.0 * centers),
+                             optics.cos(4.0 * centers)], -1)   # [A, 4]
+        coef = torch.linalg.lstsq(basis, rho_max.T).solution      # [4, K]
+        excess = (rho_max.T - basis @ coef).amax(0)
+        c0 = (coef[0] + torch.clamp_min(excess, 0.0) + 0.005) * 1.01
+        c1, c2, c4 = coef[1] * 1.01, coef[2] * 1.01, coef[3] * 1.01
+    else:
+        # naive cover: the support rotates with film azimuth, so the bound
+        # is the rotation-invariant circumradius
+        c0 = (rho_max.amax(1) + 0.005) * 1.01
+        c1 = c2 = c4 = torch.zeros_like(c0)
+
+    # held-out validation: loosen c0 by every observed violation
+    _, _, rho_h, phi_h = _polar_offsets(uh, domain)
+    ok_h = _cover_trace(lens, keys, uh, domain)[2]
+    bound_h = (c0[:, None] + c1[:, None] * optics.cos(phi_h)
+               + c2[:, None] * optics.cos(2.0 * phi_h)
+               + c4[:, None] * optics.cos(4.0 * phi_h))
+    viol = torch.where(ok_h, rho_h - bound_h, -float("inf")).amax(1)
+    c0 = c0 + torch.clamp_min(viol, 0.0)
+    profile = PupilProfile(
+        keys=keys, c0=c0, c1=c1, c2=c2, c4=c4,
+        poly=torch.zeros((4, POLY_DEGREE + 1), dtype=torch.float32,
+                         device=dev),
+        poly_scale=keys[-1],
+    )
+    return profile, key_acceptance
+
+
+def profile_poly_eval(profile: PupilProfile, dist: Tensor):
+    """The polynomial bound form (``zoic_tpu.pupil.profile_poly_eval``, the
+    kernels' Horner math): per coefficient in ``t = dist / poly_scale``,
+    with the pre-check disabled (every candidate passes) beyond the fitted
+    domain: the harmonic constant term, or the circles' q slots, set to
+    1e9 there."""
+    scale = (profile.poly_scale if profile.poly_scale is not None
+             else profile.keys[-1])
+    t_raw = dist / scale
+    t = torch.clamp_max(t_raw, 1.0)
+    deg = profile.poly.shape[1] - 1
+    outs = []
+    for j in range(4):
+        acc = profile.poly[j, deg] * torch.ones_like(t)
+        for k in range(deg - 1, -1, -1):
+            acc = acc * t + profile.poly[j, k]
+        outs.append(acc)
+    off = t_raw > 1.0
+    slots = (1, 3) if profile.kind == "circles" else (0,)
+    for j in slots:
+        outs[j] = torch.where(off, f32(1e9), outs[j])
+    return tuple(outs)
+
+
+def precheck_pass(profile: PupilProfile, dist: Tensor, lx: Tensor,
+                  ly: Tensor, use_poly: bool = False) -> Tensor:
+    """Does the pre-check bound pass candidate offset ``(lx, ly)`` at film
+    radius ``dist`` (``zoic_tpu.pupil.precheck_pass``)?  The bound's kind
+    (circle pair or harmonic series) and form (lerped per key or its
+    polynomial) as the profile and ``use_poly`` say."""
+    vals = (profile_poly_eval(profile, dist) if use_poly
+            else profile_lookup(profile, dist))
+    if profile.kind == "circles":
+        a1, q1, a2, q2 = vals
+        rr = lx * lx + ly * ly
+        return ((rr - 2.0 * a1 * lx) <= q1) & ((rr - 2.0 * a2 * lx) <= q2)
+    c0, c1, c2, c4 = vals
+    rho = optics.sqrt(lx * lx + ly * ly)
+    phi = torch.atan2(ly, lx)
+    return rho <= (c0 + c1 * optics.cos(phi) + c2 * optics.cos(2.0 * phi)
+                   + c4 * optics.cos(4.0 * phi))
 
 
 def dead_film_fraction(keys, key_acceptance, r_max: float) -> float:
@@ -308,14 +473,7 @@ def _cover_trace(lens: LensSystem, radii: Tensor, u: Tensor, domain: str):
     naive first-element targeting), from the uniforms ``u`` of shape
     ``(2, len(radii), n)``.  Returns unit-domain offsets ``(lx, ly)`` and
     the acceptance mask ``ok``."""
-    if domain == "square":
-        lx = u[0] * 2.0 - 1.0
-        ly = u[1] * 2.0 - 1.0
-    else:
-        rho = optics.sqrt(u[0])
-        phi = (u[1] * 2.0 - 1.0) * f32(np.pi)
-        lx = rho * optics.cos(phi)
-        ly = rho * optics.sin(phi)
+    lx, ly, _, _ = _polar_offsets(u, domain)
     fx = radii[:, None].expand(lx.shape)
     if lens.lut is not None:
         ms, trn = lut_lookup(lens.lut, fx)
