@@ -39,7 +39,14 @@ rays), through the entry points a user calls:
   recompile that reproduces the first compile's draws); state files and
   ``cached_compile``; the exact eager path (``impl="jnp"``) against the
   kernel and autograd on the card; data parallelism over a mesh of the one
-  card and of two shards on it, and the bench with ``--mesh``.
+  card and of two shards on it, and the bench with ``--mesh``;
+* the diagnostics (phase 33): ``Camera`` in draw mode (``debug.draw`` at
+  the reference's stride of 100,000) on the headline and on the thin lens
+  with bokeh and vignetting at the same frame, its rays held to the
+  draw-off call's bits and its ray tape to the same tape on the CPU, the
+  ``draw.zoic`` dumps, the exit-pupil coverage against the CPU and the
+  aperture self-test dump at the reference's sizes; the PNGs only where
+  matplotlib is installed.
 
 The raytraced kernel schedules its rays dynamically (warps take whichever
 rays are ready), so it is also held to what must not depend on the
@@ -64,7 +71,9 @@ hash and sampler at the bench's 4 x 524,288 cells and at the ragged
 batches' cell counts (bit-equal); ragged batches; lane use; the compiles;
 the microbenchmark; the bench's JSON line; the library surface (render and
 compile times by CUDA events and the host clock, the eager path beside
-the kernel, the bench's ``--mesh`` JSON line).  Then one JSON line per the
+the kernel, the bench's ``--mesh`` JSON line); the diagnostics (the
+tape's time beside ``create_rays``' with and without draw mode).  Then the
+summary line, one JSON line per the
 kernel table (five entries: the four sources, the bokeh source's plane
 entry apart), the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
@@ -106,6 +115,18 @@ BUILDS = (*KERNELS, ("roofline", True), ("raytraced", False, COUNT_LANES),
 # batches that do not fill a warp, a tile row or (the last, plus what
 # main() adds: just under one block per SM) the persistent grid
 RAGGED_SIZES = (1, 31, 33, 2_125)
+# the diagnostics phase: the reference's draw stride (zoic.cpp:1760), so
+# ceil(BATCH / DRAW_STRIDE) taped rays a call; the tape on the card against
+# the CPU's: hit points absolutely, exit endpoints (x 10,000) relatively;
+# the exit-pupil coverage's draws and the self-test at the reference's
+# sizes (zoic.cpp:1354-1388, 1458-1537)
+DRAW_STRIDE = 100_000
+TAPED_RAYS = 42
+TAPE_ATOL = 1e-5
+TAPE_EXIT_RTOL = 1e-5
+COVERAGE_N = 10_000
+SELFTEST = dict(film_grid=3, n_gt=10_000, n_ss=5_000)
+RAY_FIELDS = ("origin", "dir", "weight", "d_ody", "d_ddy")
 PROFILED_CALLS = 5
 PROFILE_WINDOWS = 3
 # the card's published peaks (H100 SXM datasheet): HBM
@@ -1318,6 +1339,166 @@ def sharding_phase(zt, kernels, state, kind, dev, smi, tag):
             "metric": res["metric"]}
 
 
+def diag_phase(zt, kernels, bokeh_path, dev, smi, tag):
+    """The diagnostics: ``Camera`` in draw mode at the reference's
+    ``draw_stride`` on phase 27's frame samples, the headline and the thin
+    lens with bokeh and vignetting, two calls each: one camera kernel
+    launch a call, the draw-off call's rays bit for bit, 42 taped rays a
+    call, the card's tape against the same tape on the CPU from the same
+    rays, the ``draw.zoic`` written from the card's and the CPU's tapes
+    (headers byte-equal, RAYS read back); then the exit-pupil coverage on
+    a 3 x 3 film grid against the CPU on the same uniforms, and the
+    aperture self-test dump at the reference's sizes.  PNGs are drawn only
+    where matplotlib is installed; everything else runs either way."""
+    from zoic_tpu_torch.diag import dump, pupilplot, session, tape
+
+    trace_kernel, bokeh_kernel, rk = kernels
+    has_mpl = session.can_render()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "diag")
+    spec = zt.FrameSpec(*FRAME)
+    samples = zt.render.frame_samples(
+        spec, torch.Generator(device=dev).manual_seed(SEED))
+    seeds = (SEED % (1 << 22), (SEED + 1) % (1 << 22))
+    n_taped = samples[0][::DRAW_STRIDE].numel()
+    check(n_taped == TAPED_RAYS, f"{n_taped} taped rays of {BATCH}")
+    launched, out = {}, {}
+    for i, (name, cfg) in enumerate((
+            ("headline", raytraced_config(zt, "headline")),
+            ("thinlens_bokeh_vignette",
+             thinlens_configs(zt, bokeh_path)["thinlens_bokeh_vignette"]))):
+        drawn = cfg.replace(debug=zt.DebugOptions(draw=True,
+                                                  draw_stride=DRAW_STRIDE))
+        cam, compile_s = seconds(lambda: zt.Camera(drawn, dev))
+        reset_counts(trace_kernel, bokeh_kernel, rk)
+        calls = [cam.create_rays(*samples, seed=s) for s in seeds]
+        torch.cuda.synchronize()
+        c = counts(trace_kernel, bokeh_kernel, rk)
+        add_counts(launched, c)
+        raytraced = cfg.lens_model is zt.LensModel.RAYTRACED
+        kernel = "raytraced" if raytraced else "thinlens"
+        check(c[kernel] == len(seeds) and (c["bokeh"] > 0) == cfg.use_image,
+              f"{name} draw mode: launches {c}")
+        check(len(cam._draw_segments) == len(seeds),
+              f"{name}: {len(cam._draw_segments)} tapes of {len(seeds)} calls")
+        cpu_state = cam.state.to("cpu")
+        cpu_segs, err = [], [0.0, 0.0]
+        for (rays, stats), s, segs in zip(calls, seeds, cam._draw_segments):
+            check_rays(f"{name} draw mode", rays, stats, BATCH)
+            off, _ = zt.create_rays(cam.state, cfg, *samples, seed=s)
+            check(bits_equal([getattr(rays, f) for f in RAY_FIELDS],
+                             [getattr(off, f) for f in RAY_FIELDS]),
+                  f"{name}: draw mode changed the rays")
+            if raytraced:
+                want = tape.raytraced_tape(
+                    cpu_state, drawn,
+                    *(a[::DRAW_STRIDE].cpu() for a in samples), stride=1)
+            else:
+                want = tape.thinlens_tape(
+                    cpu_state, None, None, rays.origin[::DRAW_STRIDE].cpu(),
+                    rays.dir[::DRAW_STRIDE].cpu())
+                check(len(segs) == n_taped and np.array_equal(segs, want),
+                      f"{name}: the thin-lens tape differs from the CPU's")
+            hit, rel = tape.segment_errors(segs, want)
+            check(hit <= TAPE_ATOL and rel <= TAPE_EXIT_RTOL,
+                  f"{name}: tape vs CPU hit {hit:.3e}, exit {rel:.3e}")
+            err = [max(err[0], hit), max(err[1], rel)]
+            cpu_segs.append(want)
+        card_dir, cpu_dir = (os.path.join(root, name, d)
+                             for d in ("card", "cpu"))
+        texts = []
+        for d, st, sg in ((card_dir, cam.state, cam._draw_segments),
+                          (cpu_dir, cpu_state, cpu_segs)):
+            with open(session.write_dump(st, cam.config, sg, d)) as f:
+                texts.append(f.read())
+        header = texts[0][:texts[0].index("RAYS{")]
+        check(header == texts[1][:texts[1].index("RAYS{")],
+              f"{name}: the dump's header differs from the CPU's")
+        segs = np.concatenate(cam._draw_segments)
+        back = dump.parse(texts[0])["RAYS"]
+        check(back.shape == segs.shape
+              and np.allclose(back, segs, rtol=0, atol=1e-9),
+              f"{name}: draw.zoic does not give back the tape")
+        png = "not drawn (no matplotlib)"
+        if has_mpl:
+            png = session.write_and_render(cam.state, cam.config,
+                                           cam._draw_segments, card_dir)
+            png = f"{os.path.basename(png)} {os.path.getsize(png)} B"
+        rays = calls[0][0]
+        off_ms = events_ms(lambda: zt.create_rays(cam.state, cfg, *samples,
+                                                  seed=seeds[0]))
+        on_ms = events_ms(lambda: cam.create_rays(*samples, seed=seeds[0]))
+        tape_ms = events_ms(lambda: tape.call_tape(cam.state, drawn,
+                                                   *samples, rays))
+        # the same tape of the same rays on the host, and the tape's
+        # kernels on the card per call (the profiler)
+        cpu_args = ((*(a[::DRAW_STRIDE].cpu() for a in samples), rays)
+                    if raytraced else
+                    (*samples, type(rays)(*(getattr(rays, f)[::DRAW_STRIDE]
+                                            .cpu() for f in RAY_FIELDS))))
+        host_cfg = drawn.replace(debug=zt.DebugOptions(
+            draw=True, draw_stride=1))
+        cpu_ms = statistics.median(
+            seconds(lambda: tape.call_tape(cpu_state, host_cfg,
+                                           *cpu_args))[1] * 1e3
+            for _ in range(5))
+        tape_kernels = sum(e.count for e in profiled_kernels(
+            lambda: tape.call_tape(cam.state, drawn, *samples, rays),
+            "")) / PROFILED_CALLS
+        out[name] = {"create_rays_ms": off_ms, "draw_create_rays_ms": on_ms,
+                     "tape_ms": tape_ms, "cpu_tape_ms": cpu_ms,
+                     "tape_kernels": tape_kernels, "segments": len(segs),
+                     "compile_s": compile_s}
+        print(f"[{tag}{'ab'[i]} diag {name}] Camera(debug.draw, draw_stride "
+              f"{DRAW_STRIDE}), {len(seeds)} calls of {BATCH} rays: launches "
+              f"{c}; rays bit-equal to draw off; {n_taped} taped rays a "
+              f"call, {len(segs)} segments; card vs CPU tape: hits "
+              f"{err[0]:.3e} abs, exits {err[1]:.3e} rel; draw.zoic header "
+              f"{len(header)} B equal to the CPU's, RAYS read back; PNG "
+              f"{png}; on {smi}: create_rays {off_ms:.4f} ms, with draw "
+              f"{on_ms:.4f} ms, tape {tape_ms:.4f} ms (CUDA events around "
+              f"host-synchronised calls, median of 5), {tape_kernels:.0f} "
+              f"kernels on the card a tape (profiler); the same tape on the "
+              f"host CPU {cpu_ms:.4f} ms (median of 5)", flush=True)
+
+    lens = zt.load_state(zt.data.state_path(), device=dev).lens
+    cpu_lens = lens.to("cpu")
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    cov = []
+    for fx in (-1.8, 0.0, 1.8):
+        for fy in (-1.8, 0.0, 1.8):
+            u = torch.rand((2, COVERAGE_N), generator=g, device=dev)
+            a = pupilplot.coverage(lens, (fx, fy), COVERAGE_N, uniforms=u)
+            b = pupilplot.coverage(cpu_lens, (fx, fy), COVERAGE_N,
+                                   uniforms=u.cpu())
+            check(abs(a - b) <= 1.0 / COVERAGE_N,
+                  f"coverage at ({fx}, {fy}): card {a} vs CPU {b}")
+            cov.append(a)
+    path = os.path.join(root, "testApertures.zoic")
+    _, self_s = seconds(lambda: pupilplot.write_selftest_dump(
+        lens, path, **SELFTEST))
+    gt, ss = dump.parse_aperture_test(path)
+    n_pos = (2 * SELFTEST["film_grid"] + 1) ** 2
+    check(len(gt) == n_pos and len(ss) == n_pos
+          and all(r.shape == (SELFTEST["n_ss"], 2) for r in ss)
+          and len(gt[n_pos // 2]) > 0,
+          f"self-test dump: {len(gt)} GT and {len(ss)} SS rows")
+    png = "not drawn (no matplotlib)"
+    if has_mpl:
+        p = os.path.join(root, "pupil.png")
+        pupilplot.render_comparison(lens, p, film_grid=1)
+        png = f"pupil.png {os.path.getsize(p)} B"
+    print(f"[{tag}c diag pupil] coverage on a 3 x 3 film grid at n = "
+          f"{COVERAGE_N}: {', '.join(f'{c:.4f}' for c in cov)}, equal to "
+          f"the CPU's on the same uniforms within 1/n; self-test dump "
+          f"(film_grid {SELFTEST['film_grid']}, {SELFTEST['n_gt']} / "
+          f"{SELFTEST['n_ss']} draws) {len(gt)} GT + {len(ss)} SS rows in "
+          f"{self_s:.2f} s, centre GT {len(gt[n_pos // 2])} points; PNG "
+          f"{png}", flush=True)
+    return {"launches": launched, "cameras": out, "coverage": cov,
+            "selftest_s": self_s, "matplotlib": has_mpl}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: torch.cuda.is_available() is "
@@ -1420,6 +1601,13 @@ def main() -> None:
     for r in surface.values():
         add_counts(more, r["launches"])
     surface_s = time.perf_counter() - t_surface
+
+    # ---- the diagnostics: draw mode, the tape, dumps, pupil plots
+    t_diag = time.perf_counter()
+    diag = diag_phase(zt, kernels, bokeh_path, dev, smi, "33")
+    surface_launches = dict(more)
+    add_counts(more, diag["launches"])
+    diag_s = time.perf_counter() - t_diag
 
     from zoic_tpu_torch.bench import USEFUL_OPS_PER_RAY
 
@@ -1524,9 +1712,9 @@ def main() -> None:
                                  for n, r in lanes.items()
                                  if "lanes_per_warp_trace" in r},
         "seconds": {"script": time.perf_counter() - t_script,
-                    "phases_27_31": surface_s},
+                    "phases_27_31": surface_s, "phase_33": diag_s},
         "surface": {
-            "launches": more,
+            "launches": surface_launches,
             "camera_compile_s": surface["camera"]["compile_s"],
             "render_ms": surface["camera"]["render_ms"],
             "frame_samples_ms": surface["camera"]["frame_samples_ms"],
@@ -1539,6 +1727,10 @@ def main() -> None:
             "grad_rel": surface["eager"]["grad_rel"],
             "mesh_rays_per_sec": surface["sharding"]["mesh_rays_per_sec"],
         },
+        "diag": {"launches": diag["launches"], "cameras": diag["cameras"],
+                 "coverage": diag["coverage"],
+                 "selftest_s": diag["selftest_s"],
+                 "matplotlib": diag["matplotlib"]},
     }), flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

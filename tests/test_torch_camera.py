@@ -138,12 +138,6 @@ def test_log_stats_and_totals(caplog):
     ]
 
 
-def test_debug_draw_raises():
-    cfg = _cfg(debug=zpt.DebugOptions(draw=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-        zpt.Camera(cfg, "cpu")
-
-
 # ---------------------------------------------------------------- render
 
 def test_render_frame(headline):

@@ -696,3 +696,47 @@ def test_autograd_on_card(cuda_dev):
     assert torch.isfinite(grads[1]).all() and float(grads[1].abs().max()) > 0
     assert float(torch.linalg.norm(grads[1] - grads[0])) <= (
         1e-3 * float(torch.linalg.norm(grads[0])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lut", [True, False], ids=["lut", "naive"])
+def test_tape_on_card_matches_cpu(cuda_state, lut):
+    """The ray tape traced on the card and on the CPU from the same
+    samples and state: the same segments, hit points within 1e-5, exit
+    endpoints (x 10,000) within 1e-5 relative."""
+    from zoic_tpu_torch.diag import tape
+
+    cfg = _headline_cfg(kolb_sampling_lut=lut)
+    s = _inputs(4_096, seed=23)
+    got = tape.raytraced_tape(cuda_state, cfg, *s, stride=8)
+    want = tape.raytraced_tape(cuda_state.to("cpu"), cfg,
+                               *(a.cpu() for a in s), stride=8)
+    assert len(want) > 512
+    hit_err, exit_rel = tape.segment_errors(got, want)
+    assert hit_err <= 1e-5 and exit_rel <= 1e-5
+
+
+@pytest.mark.cuda
+def test_camera_draw_on_card_keeps_the_rays(cuda_dev, tmp_path):
+    """``Camera`` in draw mode on the card returns the draw-off call's
+    rays bit for bit, raytraced and thin lens, and keeps one tape a
+    call, written by ``session.write_dump``."""
+    from zoic_tpu_torch.diag import dump, session
+
+    s = _inputs(100_000, seed=24)
+    for cfg in (_headline_cfg(pupil_precheck=False),
+                zpt.CameraConfig(lens_model=zpt.LensModel.THINLENS,
+                                 focal_length=5.0, fstop=1.4,
+                                 focal_distance=100.0, use_dof=True)):
+        drawn = cfg.replace(debug=zpt.DebugOptions(draw=True,
+                                                   draw_stride=1_000))
+        cam = zpt.Camera(drawn)
+        got, _ = cam.create_rays(*s, seed=11)
+        want, _ = zpt.create_rays(cam.state, cfg, *s, seed=11)
+        for f in ("origin", "dir", "weight", "d_ody", "d_ddy"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert len(cam._draw_segments) == 1
+        path = session.write_dump(cam.state, cam.config, cam._draw_segments,
+                                  str(tmp_path))
+        rays = dump.parse_file(path)["RAYS"]
+        assert rays.shape == cam._draw_segments[0].shape and len(rays) >= 100

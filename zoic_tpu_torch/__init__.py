@@ -20,11 +20,18 @@ caller asks for the CPU::
     image = zt.render.weight_image(spec, rays)    # [H, W] falloff
     cam.log_stats()
 
+    # the ray diagram: debug.draw tapes every draw_stride-th ray of each call
+    dbg = zt.Camera(cfg.replace(debug=zt.DebugOptions(draw=True)))
+    dbg.create_rays(sx, sy, lensx, lensy, generator=g)
+    png = dbg.finish(out_dir="out")         # draw.zoic, lensDrawing.png
+
 The functional core is ``compile_camera`` and ``create_rays``; the thin-lens
 model (pinhole, depth of field, empirical vignetting, image bokeh) runs the
 same way with ``lens_model=zt.LensModel.THINLENS``.  ``zt.io.state`` saves
 and loads states in the JAX package's v7 format and caches compiles on
-disk; ``zt.parallel.sharding`` splits a batch over several cards.
+disk; ``zt.parallel.sharding`` splits a batch over several cards;
+``zt.diag`` writes the reference's ``draw.zoic`` dumps and exit-pupil
+self-tests and draws their PNGs (this last step needs matplotlib).
 
 On CUDA tensors the per-ray work runs in the hand-written kernels
 ``csrc/raytraced.cu``, ``csrc/thinlens.cu`` and ``csrc/bokeh.cu``, built
@@ -36,8 +43,8 @@ cameras and ``python -m zoic_tpu_torch.tools.roofline`` the card's op
 rates (``csrc/roofline.cu``).
 """
 
-from . import (bokeh, data, interop, io, lensfile, optics, parallel, pupil,
-               render, sampling, solve, trace)
+from . import (bokeh, data, diag, interop, io, lensfile, optics, parallel,
+               pupil, render, sampling, solve, trace)
 from .camera import Camera, compile_camera, create_rays
 from .config import CameraConfig, DebugOptions, LensModel
 from .io.state import load as load_state
@@ -64,6 +71,7 @@ __all__ = [
     "compile_camera",
     "create_rays",
     "data",
+    "diag",
     "interop",
     "io",
     "lensfile",

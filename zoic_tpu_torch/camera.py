@@ -4,7 +4,8 @@ Counterparts of ``zoic_tpu/camera.py``: :func:`compile_camera` (the
 reference's ``node_update``, src/zoic.cpp:1575-1720), :func:`create_rays`
 (``camera_create_ray``, zoic.cpp:1752-1990) and :class:`Camera`, the
 stateful wrapper with the reference's change keys and run stats
-(``node_finish``, zoic.cpp:1723-1745).  :func:`compile_camera` computes the
+(``node_finish``, zoic.cpp:1723-1745) and the draw session of
+``debug.draw``.  :func:`compile_camera` computes the
 THINLENS scalars and builds the bokeh image on the host, and for RAYTRACED
 runs the lens compile from the lens file (parse, solve, the iris probe, the
 exit-pupil LUT and the pupil pre-check) on the camera's device.  A state
@@ -17,13 +18,16 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import Mapping, Optional, Tuple
+from typing import List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import bokeh as bokeh_mod
 from . import lensfile, pupil, solve, trace
 from .config import CameraConfig, LensModel
+from .diag import session as diag_session
+from .diag import tape as diag_tape
 from .models import raytraced, thinlens
 from .optics import V3
 from .system import CameraState, LensSystem, RayBatch, RayStats
@@ -210,14 +214,6 @@ def create_rays(
     )
 
 
-def _refuse_draw(config: CameraConfig) -> None:
-    if config.debug.draw:
-        raise NotImplementedError(
-            "debug.draw (the ray-diagram session of zoic_tpu/diag) is not "
-            "ported: ROADMAP Queue 1 item 7c"
-        )
-
-
 class Camera:
     """Stateful wrapper with the reference's caching behaviour
     (``zoic_tpu.Camera``): the compiled state on ``device``, the
@@ -229,13 +225,15 @@ class Camera:
     The compile's draws come from ``generator`` or ``uniforms`` as in
     :func:`compile_camera` (a generator seeded 0 when neither is given).
     The generator's state is kept at construction, so a recompile by
-    :meth:`update` draws what the first compile drew.  ``debug.draw``
-    raises: the draw session is not ported."""
+    :meth:`update` draws what the first compile drew.  With
+    ``config.debug.draw`` each :meth:`create_rays` call also records the
+    ray tape of :mod:`zoic_tpu_torch.diag.tape` into
+    :attr:`_draw_segments` (read back to the host, as the JAX package
+    does), and :meth:`finish` writes ``draw.zoic`` and the ray diagram."""
 
     def __init__(self, config: CameraConfig, device="cuda", *,
                  generator: Optional[torch.Generator] = None,
                  uniforms: Optional[Mapping] = None):
-        _refuse_draw(config)
         self.config = config
         self.device = torch.device(device)
         self._uniforms = uniforms
@@ -245,6 +243,7 @@ class Camera:
         self._lens_key = config.lens_key()
         self.stats_totals = torch.zeros(3, dtype=torch.int64,
                                         device=self.state.device)
+        self._draw_segments: List[np.ndarray] = []
 
     def _compile(self, config: CameraConfig) -> CameraState:
         generator = None
@@ -262,7 +261,6 @@ class Camera:
         with the camera's original draws.  The exposure and the empirical
         vignetting parameters, read per ray by the reference (zoic.cpp:1802,
         1980), are refreshed every time."""
-        _refuse_draw(config)
         if config.lens_key() != self._lens_key:
             if config.solve_key() == self.config.solve_key():
                 image = _load_bokeh(config)
@@ -293,17 +291,42 @@ class Camera:
                     ) -> Tuple[RayBatch, RayStats]:
         """:func:`create_rays` on the camera's state and config; the call's
         stats are added to :attr:`stats_totals` on the device, with no read
-        back."""
+        back unless ``debug.draw`` is set."""
         rays, stats = create_rays(self.state, self.config, sx, sy, lensx,
                                   lensy, seed=seed, generator=generator)
         self.stats_totals += torch.stack(
             [stats.success, stats.vignetted, stats.tir]).to(torch.int64)
+        if self.config.debug.draw:
+            # _DRAW mode (zoic.cpp:53-57): keep the dump segments of a
+            # strided sub-batch of this generation; finish() writes
+            # draw.zoic and the diagram (the reference appends to the dump
+            # per ray and shells to draw.py at node_finish,
+            # zoic.cpp:1758-1764, 1741-1742)
+            segs = diag_tape.call_tape(self.state, self.config, sx, sy,
+                                       lensx, lensy, rays)
+            if segs.size:
+                self._draw_segments.append(segs)
         return rays, stats
 
-    def finish(self) -> None:
-        """The ``node_finish`` flow (zoic.cpp:1723-1745): log the run
-        stats."""
+    def finish(self, out_dir: str = ".") -> Optional[str]:
+        """The ``node_finish`` flow (zoic.cpp:1723-1745): log the run stats
+        and, when ``debug.draw`` captured any rays, write ``draw.zoic`` and
+        render the ray diagram ``lensDrawing.png`` into ``out_dir`` (the
+        reference's ``system("python draw.py")`` hop, zoic.cpp:1741-1742,
+        done in-process).  Returns the PNG's path, or None when no diagram
+        was drawn: no rays captured, or no matplotlib to draw with (then
+        ``draw.zoic`` is written all the same, and a warning logged)."""
         self.log_stats()
+        if not (self.config.debug.draw and self._draw_segments):
+            return None
+        if not diag_session.can_render():
+            path = diag_session.write_dump(self.state, self.config,
+                                           self._draw_segments, out_dir)
+            log.warning("[ZOIC] matplotlib is not installed: wrote %s, drew "
+                        "no ray diagram", path)
+            return None
+        return diag_session.write_and_render(
+            self.state, self.config, self._draw_segments, out_dir)
 
     def log_stats(self) -> None:
         """The ``node_finish`` report (zoic.cpp:1729-1732)."""

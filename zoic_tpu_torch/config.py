@@ -146,15 +146,15 @@ class DebugOptions:
     """Runtime replacements for the reference's compile-time debug flags.
 
     ``draw`` mirrors ``_DRAW`` (zoic.cpp:53-57): when enabled,
-    :meth:`zoic_tpu.camera.Camera.create_rays` additionally records a ray
-    tape (per-element hit segments) for a 1-in-``draw_stride`` sub-batch of
-    each generation — the vectorized analog of dumping every 100,000th ray
+    :meth:`zoic_tpu_torch.camera.Camera.create_rays` additionally records a
+    ray tape (per-element hit segments) for a 1-in-``draw_stride`` sub-batch
+    of each generation — the vectorized analog of dumping every 100,000th ray
     (zoic.cpp:1758-1764) — and :meth:`Camera.finish` writes the accumulated
     ``draw.zoic`` dump and renders the ray-diagram PNG, reproducing the
     reference's render-then-auto-draw flow (zoic.cpp:1741-1745).  The
     functional ``create_rays`` stays pure; use
-    :func:`zoic_tpu.diag.session.render_debug_session` for a one-call
-    equivalent without the stateful wrapper.
+    :func:`zoic_tpu_torch.diag.session.render_debug_session` for a
+    one-call equivalent without the stateful wrapper.
 
     ``image_sampling_trace`` mirrors ``_DEBUGIMAGESAMPLING``
     (zoic.cpp:47-51, 248-409): a path that receives every bokeh-CDF build

@@ -17,7 +17,7 @@ kernel's iris refract-identity skip.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +33,11 @@ class TraceResult(NamedTuple):
     direction: V3   # final (or frozen partial) direction per ray
     ok: Tensor      # bool — survived the full stack
     tir: Tensor     # bool — died by total internal reflection
+    # the per-element hit tape of the diagnostics (None unless requested):
+    # f32[E, ...] z and y of each element's hit, NaN where the ray did not
+    # reach that element
+    tape_z: Optional[Tensor] = None
+    tape_y: Optional[Tensor] = None
 
 
 def _ior_next(lens: LensSystem) -> Tensor:
@@ -52,14 +57,17 @@ def _cull(lens: LensSystem, i: int, hit: V3) -> Tensor:
     return cull
 
 
-def trace_stack(lens: LensSystem, origin: V3, direction: V3) -> TraceResult:
+def trace_stack(lens: LensSystem, origin: V3, direction: V3, *,
+                record_tape: bool = False) -> TraceResult:
     """Trace a batch of rays rear-to-front through the element stack
     (``zoic_tpu.trace.trace_stack``).  Components may have any batch
-    shape."""
+    shape.  ``record_tape`` also returns each element's hit point
+    (``tape_z``, ``tape_y``) for :mod:`zoic_tpu_torch.diag.tape`."""
     ior_next = _ior_next(lens)
     o, d = origin, direction
     active = torch.ones_like(origin.x, dtype=torch.bool)
     tir_any = torch.zeros_like(active)
+    tape_z, tape_y = [], []
     for i in range(lens.count):
         center_z, curv = lens.center[i], lens.curvature[i]
         hit, miss = optics.ray_sphere_intersect(
@@ -67,6 +75,9 @@ def trace_stack(lens: LensSystem, origin: V3, direction: V3) -> TraceResult:
         )
         reached = active & ~miss & ~_cull(lens, i, hit)
         o = optics.where_v3(reached, hit, o)
+        if record_tape:
+            tape_z.append(torch.where(reached, hit.z, float("nan")))
+            tape_y.append(torch.where(reached, hit.y, float("nan")))
         normal = optics.sphere_normal(hit, center_z, curv)
         d_new, tir = optics.refract(d, normal, lens.ior[i], ior_next[i],
                                     check_tir=True)
@@ -74,6 +85,9 @@ def trace_stack(lens: LensSystem, origin: V3, direction: V3) -> TraceResult:
         active = reached & ~tir
         d = optics.where_v3(active, d_new, d)
         tir_any = tir_any | tir
+    if record_tape:
+        return TraceResult(o, d, active, tir_any, torch.stack(tape_z),
+                           torch.stack(tape_y))
     return TraceResult(o, d, active, tir_any)
 
 
