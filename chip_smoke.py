@@ -46,7 +46,15 @@ rays), through the entry points a user calls:
   draw-off call's bits and its ray tape to the same tape on the CPU, the
   ``draw.zoic`` dumps, the exit-pupil coverage against the CPU and the
   aperture self-test dump at the reference's sizes; the PNGs only where
-  matplotlib is installed.
+  matplotlib is installed;
+* the examples (phase 34): ``python -m zoic_tpu_torch.examples.render_demo``
+  on each of the eight lenses of ``zoic_tpu_torch.data.LENSES`` at its
+  defaults (a 20,000-sample LUT and the pre-check, a 192 x 128 x 4 frame,
+  the ray tape, the dump, the exit-pupil coverage at 25 film points), the
+  four lenses no shipped camera uses also with the kernel held to its
+  plain version on the frame's samples and timed at the full batch; and
+  ``python -m zoic_tpu_torch.examples.lens_optimization``, 60 Adam steps on
+  the card, its first losses against the CPU's.
 
 The raytraced kernel schedules its rays dynamically (warps take whichever
 rays are ready), so it is also held to what must not depend on the
@@ -72,7 +80,9 @@ batches' cell counts (bit-equal); ragged batches; lane use; the compiles;
 the microbenchmark; the bench's JSON line; the library surface (render and
 compile times by CUDA events and the host clock, the eager path beside
 the kernel, the bench's ``--mesh`` JSON line); the diagnostics (the
-tape's time beside ``create_rays``' with and without draw mode).  Then the
+tape's time beside ``create_rays``' with and without draw mode); the
+examples (per lens the compile's seconds, the render's time, vignetting,
+the tape's segments and the coverage; the optimisation's losses).  Then the
 summary line, one JSON line per the
 kernel table (five entries: the four sources, the bokeh source's plane
 entry apart), the card's name and power limit from nvidia-smi, and last
@@ -127,6 +137,19 @@ TAPE_EXIT_RTOL = 1e-5
 COVERAGE_N = 10_000
 SELFTEST = dict(film_grid=3, n_gt=10_000, n_ss=5_000)
 RAY_FIELDS = ("origin", "dir", "weight", "d_ody", "d_ddy")
+# the examples phase: the render demo's frame holds the kernel to the plain
+# version at the gate's share (0.01% of its rays); the lens optimisation's
+# first losses on the card against the CPU's, relative, and the share of
+# the perturbation it must take back (the JAX example's run takes 101%)
+EXAMPLE_LOSSES = 10
+EXAMPLE_LOSSES_RTOL = 1e-4
+EXAMPLE_MIN_RECOVERED = 0.9
+# the raytraced kernel's least work on a lens, from bench.py's counts:
+# element-ops per aperture draw (hash, shaping, pre-check) for every
+# attempt, and per trace for every ray that succeeds (it was traced once
+# at least); rejected traces are not counted
+DRAW_OPS = 72
+TRACE_OPS = 560
 PROFILED_CALLS = 5
 PROFILE_WINDOWS = 3
 # the card's published peaks (H100 SXM datasheet): HBM
@@ -267,15 +290,19 @@ def profiled_kernels(fn, match: str, calls: int = PROFILED_CALLS):
     the card during ``calls`` calls of ``fn()``, after one warm-up call.
     The profiler may lose the records of a window: a window in which no
     kernel's name holds ``match`` is profiled again, up to
-    ``PROFILE_WINDOWS`` times."""
+    ``PROFILE_WINDOWS`` times, the repeats with device activity alone
+    (late in this script a window of host and device activity has kept
+    no device record at all where one of device activity kept them)."""
     from zoic_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
     log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke", "trace")
-    for _ in range(PROFILE_WINDOWS):
-        with profiling.trace(log_dir) as prof:
+    for window in range(PROFILE_WINDOWS):
+        with (profiling.trace(log_dir) if window == 0 else
+              torch.profiler.profile(activities=[
+                  torch.profiler.ProfilerActivity.CUDA])) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -287,11 +314,15 @@ def profiled_kernels(fn, match: str, calls: int = PROFILED_CALLS):
     return events
 
 
-def device_ms(fn, match: str) -> float:
+def device_ms(fn, match: str, required: bool = True):
     """The kernel's own milliseconds on the card per launch by ``fn()``:
     the mean device time of the kernels whose name holds ``match`` (the
-    profiler may drop a record, so over the launches it kept)."""
+    profiler may drop a record, so over the launches it kept).  Where the
+    profiler kept none in ``PROFILE_WINDOWS`` windows: a failure, or None
+    when not ``required``."""
     events = [e for e in profiled_kernels(fn, match) if match in e.key]
+    if not (events or required):
+        return None
     check(events, f"the profiler saw no device time of a {match} kernel "
           f"in {PROFILE_WINDOWS} windows")
     return (sum(e.device_time_total for e in events)
@@ -359,6 +390,49 @@ def median_line(timed) -> str:
     return "; ".join(parts)
 
 
+def kernel_vs_plain(trace_kernel, name, args, kw, max_tries, tag, limit):
+    """The raytraced kernel against its plain version on ``args``/``kw``:
+    ``tries``/``tir`` may differ on at most ``limit`` rays, the payloads of
+    rays whose tries agree and are live within ``PAYLOAD_ATOL``, and two
+    launches must give the same bits (the schedule is dynamic, the result
+    must not be).  Prints one line under ``tag``."""
+    ko, kd, kt, ktir = trace_kernel.raytraced_fused(*args, **kw)
+    po, pd, pt, ptir = trace_kernel.raytraced_plain(*args, **kw)
+    torch.cuda.synchronize()
+    n = kt.numel()
+    mismatch = int(((kt != pt) | (ktir != ptir)).sum())
+    same = (kt == pt) & (ktir == ptir) & (kt <= max_tries)
+    check(bool(same.any()), f"{name}: no live ray to compare")
+    err_o = float((ko - po)[same].abs().max())
+    err_d = float((kd - pd)[same].abs().max())
+    err_all = max(float((ko - po).abs().max()), float((kd - pd).abs().max()))
+    print(f"[{tag}] tries/tir mismatches {mismatch} of {n} (limit {limit}); "
+          f"live max |d origin| {err_o:.3e} |d dir| {err_d:.3e} (limit "
+          f"{PAYLOAD_ATOL}); all rays {err_all:.3e}", flush=True)
+    check(mismatch <= limit, f"{name}: kernel and plain disagree on tries")
+    check(max(err_o, err_d) <= PAYLOAD_ATOL,
+          f"{name}: kernel and plain payloads disagree")
+    again = trace_kernel.raytraced_fused(*args, **kw)
+    check(bits_equal(again, (ko, kd, kt, ktir)),
+          f"{name}: two launches on the same inputs differ")
+    return {"out": (ko, kd, kt, ktir), "mismatches": mismatch,
+            "max_abs_err": max(err_o, err_d)}
+
+
+def fresh_inputs(state, cfg, tg: torch.Generator, dev):
+    """A maker of the raytraced kernel's arguments at ``BATCH``: fresh
+    draws, retry seed and planes per call, from the generator ``tg``."""
+    from zoic_tpu_torch.models import raytraced as rt_model
+
+    def fresh():
+        s = int(torch.randint(0, 1 << 22, (), generator=tg, device=dev))
+        a, b, c, d = draws(tg, BATCH, dev)
+        c, d, fkw = rt_model.kernel_inputs(state, cfg, c, d, s)
+        return (state.lens, a, b, c, d, state.sensor_width, s, fkw)
+
+    return fresh
+
+
 def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
                     smi, tags, time_plain=True, headline=False):
     """Drive one raytraced camera through create_rays, check the run, hold
@@ -420,38 +494,16 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     seed = SEED % (1 << 22)
     u1, u2, kw = rt_model.kernel_inputs(state, cfg, lx, ly, seed)
     args = (state.lens, sx, sy, u1, u2, state.sensor_width, seed)
-    ko, kd, kt, ktir = trace_kernel.raytraced_fused(*args, **kw)
-    po, pd, pt, ptir = trace_kernel.raytraced_plain(*args, **kw)
-    torch.cuda.synchronize()
-    mismatch = int(((kt != pt) | (ktir != ptir)).sum())
-    same = (kt == pt) & (ktir == ptir) & (kt <= cfg.max_tries)
-    err_o = float((ko - po)[same].abs().max())
-    err_d = float((kd - pd)[same].abs().max())
-    err_all = max(float((ko - po).abs().max()), float((kd - pd).abs().max()))
-    max_abs_err = max(err_o, err_d)
-    print(f"[{tags[1]}] tries/tir mismatches {mismatch} of {BATCH} "
-          f"(limit {MAX_TRIES_MISMATCH}); live max |d origin| {err_o:.3e} "
-          f"|d dir| {err_d:.3e} (limit {PAYLOAD_ATOL}); all rays "
-          f"{err_all:.3e}", flush=True)
-    check(mismatch <= MAX_TRIES_MISMATCH,
-          f"{name}: kernel and plain disagree on tries")
-    check(max_abs_err <= PAYLOAD_ATOL,
-          f"{name}: kernel and plain payloads disagree")
-    # the schedule is dynamic, the result must not be
-    again = trace_kernel.raytraced_fused(*args, **kw)
-    check(bits_equal(again, (ko, kd, kt, ktir)),
-          f"{name}: two launches on the same inputs differ")
+    cmp = kernel_vs_plain(trace_kernel, name, args, kw, cfg.max_tries,
+                          tags[1], MAX_TRIES_MISMATCH)
+    ko, kd, kt, ktir = cmp["out"]
+    max_abs_err, mismatch = cmp["max_abs_err"], cmp["mismatches"]
     dev_ms = device_ms(lambda: trace_kernel.raytraced_fused(*args, **kw),
                        "raytraced_kernel")
 
     # timings (information only), fresh draws, seed and planes per call
     tg = torch.Generator(device=dev).manual_seed(SEED + 1)
-
-    def fresh():
-        s = int(torch.randint(0, 1 << 22, (), generator=tg, device=dev))
-        a, b, c, d = draws(tg, BATCH, dev)
-        c, d, fkw = rt_model.kernel_inputs(state, cfg, c, d, s)
-        return (state.lens, a, b, c, d, state.sensor_width, s, fkw)
+    fresh = fresh_inputs(state, cfg, tg, dev)
 
     def e2e_args():
         return (*draws(tg, BATCH, dev),
@@ -1178,29 +1230,6 @@ def state_io_phase(zt, kernels, cam, cfg, dev, smi, tag):
     return {"launches": launched, "compile_s": s_compile, "load_s": s_load}
 
 
-def spot_rms(lens, curvature, u):
-    """RMS radius of the on-axis spot at the focus distance, as a function
-    of the curvatures (``tests/test_torch_differentiable.py``)."""
-    from zoic_tpu_torch import sampling, trace
-    from zoic_tpu_torch.optics import V3
-
-    lens = dataclasses.replace(
-        lens, curvature=curvature,
-        center=torch.cumsum(lens.thickness, 0) - curvature)
-    lx, ly = sampling.concentric_disk_sample(u[0], u[1])
-    z = torch.zeros_like(u[0])
-    res = trace.trace_stack(
-        lens, V3(z, z, z + lens.origin_shift),
-        V3(lx * lens.user_aperture_radius * 2.0,
-           ly * lens.user_aperture_radius * 2.0, z - lens.thickness[0]))
-    t = (lens.focal_distance - res.origin.z) / res.direction.z
-    hx = res.origin.x + res.direction.x * t
-    hy = res.origin.y + res.direction.y * t
-    w = res.ok.to(torch.float32)
-    return torch.sqrt(((hx * hx + hy * hy) * w).sum()
-                      / torch.clamp_min(w.sum(), 1.0))
-
-
 def eager_phase(zt, kernels, state, dev, smi, tag):
     """The exact eager path (``impl="jnp"``) on the headline at the bench's
     batch against the kernel: the first attempt (``max_tries=0``) and the
@@ -1257,6 +1286,8 @@ def eager_phase(zt, kernels, state, dev, smi, tag):
         kolb_sampling_lut=False, pupil_precheck=False)
     u = torch.from_numpy(np.random.default_rng(0).uniform(
         size=(2, 1024)).astype(np.float32))
+    from zoic_tpu_torch.examples.lens_optimization import spot_rms
+
     grads = []
     for d in ("cpu", dev):
         lens = zt.compile_camera(tcfg, d).lens
@@ -1499,6 +1530,143 @@ def diag_phase(zt, kernels, bokeh_path, dev, smi, tag):
             "selftest_s": self_s, "matplotlib": has_mpl}
 
 
+
+def examples_phase(zt, kernels, dev, smi, tag):
+    """The two examples on the card.  The render demo on every lens of
+    ``zt.data.LENSES`` at its defaults (the camera compiled with a
+    20,000-sample LUT and the pre-check, a 192 x 128 x 4 frame through
+    ``render.render_rays``, the tape of 4,096 draws at stride 16, the dump,
+    the coverage at 25 film points; PNGs only with matplotlib) into
+    ``build/chip_smoke/examples``: one raytraced launch each, finite rays,
+    the render's time by CUDA events.  On the lenses no shipped camera
+    uses, the kernel against its plain version on the frame's samples, and
+    its time at ``BATCH`` beside its attempts/ray and its bound.  Then the
+    lens optimisation: 60 Adam steps on the card, its first losses against
+    the same run on the CPU (the card's lens and uniforms copied there),
+    and the share of the perturbation it takes back."""
+    from zoic_tpu_torch.examples import lens_optimization, render_demo
+    from zoic_tpu_torch.models import raytraced as rt_model
+
+    trace_kernel, bokeh_kernel, rk = kernels
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke", "examples")
+    shipped = {c.lens for c in zt.data.CAMERAS.values()}
+    spec = render_demo.SPEC
+    n_points = (2 * render_demo.FILM_GRID + 1) ** 2
+    frame_limit = spec.n_samples * MAX_TRIES_MISMATCH // BATCH
+    launched, lenses = {}, {}
+    for name in sorted(zt.data.LENSES):
+        reset_counts(trace_kernel, bokeh_kernel, rk)
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = render_demo.run(name, out_dir, dev)
+        torch.cuda.synchronize()
+        n = counts(trace_kernel, bokeh_kernel, rk)
+        add_counts(launched, n)
+        check(n["raytraced"] == 1 and sum(n.values()) == 1,
+              f"demo {name}: launches {n}, not one raytraced launch")
+        check_rays(f"demo {name}", res.rays, res.stats, spec.n_samples)
+        check(res.image.shape == (spec.height, spec.width)
+              and bool(torch.isfinite(res.image).all()),
+              f"demo {name}: weight image")
+        check(len(res.segments) > 0 and bool(np.isfinite(res.segments).all())
+              and os.path.getsize(res.dump_path) > 0,
+              f"demo {name}: tape or dump")
+        cover = list(res.coverage.values())
+        check(len(cover) == n_points and all(0.0 <= c <= 1.0 for c in cover),
+              f"demo {name}: coverage {cover}")
+        st, cfg = res.camera.state, res.camera.config
+        g = torch.Generator(device=dev).manual_seed(0)
+        render_ms = events_ms(
+            lambda: zt.render.render_rays(st, cfg, spec, g))
+        row = {"compile_s": res.compile_s, "render_ms": render_ms,
+               "vignetted_pct": float(res.stats.vignetted_percent()),
+               "tir": int(res.stats.tir),
+               "attempts": 1.0 + int(res.stats.tries_total) / spec.n_samples,
+               "segments": len(res.segments), "coverage": cover,
+               "not_drawn": len(res.not_drawn)}
+        print(f"[{tag}a demo {name}] compile {res.compile_s:.2f} s; "
+              f"render_rays {spec.width}x{spec.height}x{spec.spp} "
+              f"{render_ms:.4f} ms (CUDA events, median of 5); vignetted "
+              f"{row['vignetted_pct']:.2f}%, tir {row['tir']}, attempts/ray "
+              f"{row['attempts']:.4f}; {row['segments']} segments; "
+              f"{len(res.written)} files, {len(res.not_drawn)} PNGs not "
+              f"drawn; coverage at {n_points} film points "
+              + " ".join(f"{c:.4f}" for c in cover), flush=True)
+        if name not in shipped:
+            sx, sy, lu, lv = zt.render.frame_samples(
+                spec, torch.Generator(device=dev).manual_seed(0))
+            seed = SEED % (1 << 22)
+            u1, u2, kw = rt_model.kernel_inputs(st, cfg, lu, lv, seed)
+            args = (st.lens, sx, sy, u1, u2, st.sensor_width, seed)
+            cmp = kernel_vs_plain(trace_kernel, name, args, kw,
+                                  cfg.max_tries,
+                                  f"{tag}a demo {name} kernel vs plain",
+                                  frame_limit)
+            fresh = fresh_inputs(
+                st, cfg, torch.Generator(device=dev).manual_seed(SEED + 34),
+                dev)
+            big = fresh()
+            out = trace_kernel.raytraced_fused(*big[:7], **big[7])
+            ms = statistics.median(time_ms(
+                lambda *a: trace_kernel.raytraced_fused(*a[:7], **a[7]),
+                fresh))
+            # information only: a window the profiler lost is no failure
+            card_ms = device_ms(
+                lambda: trace_kernel.raytraced_fused(*big[:7], **big[7]),
+                "raytraced_kernel", required=False)
+            tries = out[2]
+            attempts = 1.0 + int(tries.sum()) / BATCH
+            success = int((tries <= cfg.max_tries).sum())
+            rt_bound = bound(nbytes(*big[1:5], *out),
+                             DRAW_OPS * attempts * BATCH + TRACE_OPS * success)
+            row.update(mismatches=cmp["mismatches"],
+                       max_abs_err=cmp["max_abs_err"], kernel_ms=ms,
+                       device_ms=card_ms, batch_attempts=attempts,
+                       bound_ms=rt_bound[0], bound_by=rt_bound[1])
+            print(f"[{tag}a demo {name} kernel at B = {BATCH}] on {smi}: "
+                  f"{ms:.4f} ms (CUDA events, median of 10), "
+                  + (f"{card_ms:.4f} ms" if card_ms is not None
+                     else "not measured (no record kept)")
+                  + f" on the card (profiler); attempts/ray {attempts:.4f}, "
+                  f"success {success}; bound {rt_bound[0]:.4f} ms "
+                  f"({rt_bound[1]})", flush=True)
+        lenses[name] = row
+
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    lo = lens_optimization
+    lens, opt_s = seconds(lambda: zt.compile_camera(lo.config(), dev).lens)
+    u = lo.uniforms(dev)
+    card, card_s = seconds(lambda: lo.run(dev, lens=lens, u=u))
+    n = counts(trace_kernel, bokeh_kernel, rk)
+    check(sum(n.values()) == 0, f"the lens optimisation launched {n}")
+    cpu = lo.run("cpu", steps=EXAMPLE_LOSSES, lens=lens.to("cpu"),
+                 u=u.cpu())
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(card.losses[:EXAMPLE_LOSSES], cpu.losses))
+    check(len(card.losses) == lo.STEPS
+          and all(math.isfinite(x) for x in card.losses),
+          "the lens optimisation's losses")
+    check(rel <= EXAMPLE_LOSSES_RTOL,
+          f"the card's first losses are {rel:.2e} off the CPU's")
+    check(card.recovered >= EXAMPLE_MIN_RECOVERED,
+          f"the lens optimisation recovered {card.recovered:.3f}")
+    print(f"[{tag}b lens optimisation] {lo.LENS}, {lo.STEPS} Adam steps on "
+          f"the card: spot RMS designed {card.designed:.6f} cm, perturbed "
+          f"{card.perturbed:.6f}, steps 0-50 "
+          + " ".join(f"{x:.6f}" for x in card.losses[::lo.REPORT_EVERY])
+          + f", final {card.final:.6f} (recovered {card.recovered * 100:.1f}%"
+          f", limit {EXAMPLE_MIN_RECOVERED * 100:.0f}%); first "
+          f"{EXAMPLE_LOSSES} losses {rel:.2e} relative to the CPU's (limit "
+          f"{EXAMPLE_LOSSES_RTOL}); compile {opt_s:.2f} s, steps "
+          f"{card_s:.2f} s; no kernel launched", flush=True)
+    return {"launches": launched, "lenses": lenses,
+            "optimisation": {"designed": card.designed,
+                             "perturbed": card.perturbed,
+                             "final": card.final,
+                             "recovered": card.recovered,
+                             "cpu_rel": rel, "steps_s": card_s}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: torch.cuda.is_available() is "
@@ -1609,6 +1777,12 @@ def main() -> None:
     add_counts(more, diag["launches"])
     diag_s = time.perf_counter() - t_diag
 
+    # ---- the examples: the render demo on every lens, the optimisation
+    t_examples = time.perf_counter()
+    examples = examples_phase(zt, kernels, dev, smi, "34")
+    add_counts(more, examples["launches"])
+    examples_s = time.perf_counter() - t_examples
+
     from zoic_tpu_torch.bench import USEFUL_OPS_PER_RAY
 
     rep = thin["thinlens_f1.4"]
@@ -1623,7 +1797,10 @@ def main() -> None:
         "replaces": "zoic_tpu/ops/trace_kernel.py:975",
         "launches": (sum(r["launches"] for r in rt.values())
                      + more["raytraced"]),
-        "max_abs_err": max(r["max_abs_err"] for r in rt.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in rt.values()]
+                           + [r["max_abs_err"]
+                              for r in examples["lenses"].values()
+                              if "max_abs_err" in r]),
         "ms": head["kernel_ms"],
         "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"],
@@ -1712,7 +1889,8 @@ def main() -> None:
                                  for n, r in lanes.items()
                                  if "lanes_per_warp_trace" in r},
         "seconds": {"script": time.perf_counter() - t_script,
-                    "phases_27_31": surface_s, "phase_33": diag_s},
+                    "phases_27_31": surface_s, "phase_33": diag_s,
+                    "phase_34": examples_s},
         "surface": {
             "launches": surface_launches,
             "camera_compile_s": surface["camera"]["compile_s"],
@@ -1731,6 +1909,9 @@ def main() -> None:
                  "coverage": diag["coverage"],
                  "selftest_s": diag["selftest_s"],
                  "matplotlib": diag["matplotlib"]},
+        "examples": {"launches": examples["launches"],
+                     "lenses": examples["lenses"],
+                     "optimisation": examples["optimisation"]},
     }), flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

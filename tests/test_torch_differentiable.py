@@ -4,7 +4,9 @@ tensor ops, so ``torch.autograd`` carries gradients through them to the
 lens parameters.  On the Tessar f/2.8, with the same numpy uniforms on
 both sides: finite, non-zero gradients; 25 normalised gradient steps halve
 the spot RMS of a perturbed lens; d(image distance)/d(object distance) > 0;
-and the spot RMS's gradient with respect to the curvatures equals
+and the spot RMS's gradient (``spot_rms`` of
+``zoic_tpu_torch.examples.lens_optimization``) with respect to the
+curvatures equals
 ``jax.grad``'s on the same lens (the port's compile, read by the JAX
 package's state loader) within 1e-3 relative.
 """
@@ -23,9 +25,9 @@ from zoic_tpu.io import state as jax_state_io
 from zoic_tpu.optics import V3 as JV3
 
 import zoic_tpu_torch as zpt
-from zoic_tpu_torch import sampling, solve, trace
+from zoic_tpu_torch import solve
+from zoic_tpu_torch.examples.lens_optimization import spot_rms
 from zoic_tpu_torch.io import state as state_io
-from zoic_tpu_torch.optics import V3
 from _torch_threads import one_thread  # noqa: F401
 
 N = 1024
@@ -49,24 +51,6 @@ def uniforms():
     return np.random.default_rng(0).uniform(size=(2, N)).astype(np.float32)
 
 
-def _spot_rms(lens, curvature, u):
-    lens = dataclasses.replace(
-        lens, curvature=curvature,
-        center=torch.cumsum(lens.thickness, 0) - curvature)
-    lx, ly = sampling.concentric_disk_sample(u[0], u[1])
-    px = lx * lens.user_aperture_radius * 2.0
-    py = ly * lens.user_aperture_radius * 2.0
-    z = torch.zeros(u.shape[1])
-    res = trace.trace_stack(lens, V3(z, z, z + lens.origin_shift),
-                            V3(px, py, z - lens.thickness[0]))
-    t = (lens.focal_distance - res.origin.z) / res.direction.z
-    hx = res.origin.x + res.direction.x * t
-    hy = res.origin.y + res.direction.y * t
-    w = res.ok.to(torch.float32)
-    return torch.sqrt(((hx * hx + hy * hy) * w).sum()
-                      / torch.clamp_min(w.sum(), 1.0))
-
-
 def _spot_rms_jax(lens, curvature, u):
     lens = dataclasses.replace(lens, curvature=curvature,
                                center=jnp.cumsum(lens.thickness) - curvature)
@@ -86,7 +70,7 @@ def _spot_rms_jax(lens, curvature, u):
 
 def _grad(lens, curvature, u):
     c = curvature.detach().clone().requires_grad_(True)
-    loss = _spot_rms(lens, c, torch.from_numpy(u))
+    loss = spot_rms(lens, c, torch.from_numpy(u))
     (g,) = torch.autograd.grad(loss, c)
     return float(loss.detach()), g
 

@@ -157,6 +157,14 @@ class RayStats:
     tir: Tensor
     tries_total: Tensor  # retry draws beyond the first attempt
 
+    def vignetted_percent(self) -> Tensor:
+        """Vignetted rays as a percentage of the rays counted, 0 when none
+        were (the ``node_finish`` report's percentage)."""
+        denom = self.success.to(torch.float32) + self.vignetted.to(
+            torch.float32)
+        return torch.where(denom > 0, self.vignetted / denom * 100.0,
+                           torch.zeros_like(denom))
+
 
 # ---------------------------------------------------------------- bridge
 
