@@ -26,8 +26,9 @@ rays), through the entry points a user calls:
   exactly, the solve's scalars to 1e-5, the LUT and bound by what they
   do: attempts/ray and the vignetted fraction of ``create_rays`` on both);
 * the op-rate microbenchmark kernel, its 13 cases against their plain
-  versions (bit-equal) and beside their bounds, the fma case also with
-  contraction on;
+  versions (bit-equal) and beside their bounds, its hand-written square
+  root, division and reciprocal against PyTorch's over every exponent and
+  the specials (bit-equal), and the SM clock the card holds under load;
 * the bench, ``python -m zoic_tpu_torch.bench``'s headline, which
   measures its peak op rate with the microbenchmark kernel;
 * the library surface, as the README's quick start uses it (phases
@@ -65,11 +66,11 @@ they draw and trace, on five cameras) gives the main build's tries.
 
     python3 chip_smoke.py
 
-Phases, one line each: the device; the kernel builds (seven ``nvcc`` runs
-in parallel: four sources, the microbenchmark twice, the two camera
-kernels' counting builds); then per camera the run through ``create_rays``
-checked for launches, finite outputs and its run counters, the kernel
-against its plain PyTorch version on the same inputs, and timings with
+Phases, one line each: the device; the kernel builds (six ``nvcc`` runs
+in parallel: four sources, the two camera kernels' counting builds); then
+per camera the run through ``create_rays`` checked for launches, finite
+outputs and its run counters, the kernel against its plain PyTorch
+version on the same inputs, and timings with
 CUDA events and, for the kernel's own time on the card, torch.profiler,
 with the call's device time split per kernel; the bokeh kernel against
 its plain version on 4,194,304 draws (bit-equal) on both of its paths
@@ -77,7 +78,8 @@ its plain version on 4,194,304 draws (bit-equal) on both of its paths
 memory: a 300x200 image), and its retry-plane entry against the eager
 hash and sampler at the bench's 4 x 524,288 cells and at the ragged
 batches' cell counts (bit-equal); ragged batches; lane use; the compiles;
-the microbenchmark; the bench's JSON line; the library surface (render and
+the microbenchmark (rates, the IEEE sweep, the clock held); the bench's
+JSON line and its bursts' spread; the library surface (render and
 compile times by CUDA events and the host clock, the eager path beside
 the kernel, the bench's ``--mesh`` JSON line); the diagnostics (the
 tape's time beside ``create_rays``' with and without draw mode); the
@@ -117,10 +119,10 @@ SEED = 20261016
 MAX_TRIES_MISMATCH = 419
 PAYLOAD_ATOL = 1e-5
 KERNELS = ("raytraced", "thinlens", "bokeh", "roofline")
-# the builds: every source with --fmad=false, the microbenchmark also with
-# fma contraction on
+# the builds: every source with --fmad=false, the camera kernels also
+# counting lanes
 COUNT_LANES = ("ZOIC_COUNT_LANES",)
-BUILDS = (*KERNELS, ("roofline", True), ("raytraced", False, COUNT_LANES),
+BUILDS = (*KERNELS, ("raytraced", False, COUNT_LANES),
           ("thinlens", False, COUNT_LANES))
 # batches that do not fill a warp, a tile row or (the last, plus what
 # main() adds: just under one block per SM) the persistent grid
@@ -878,9 +880,11 @@ def compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi, tag):
 
 def roofline_phase(rk, roofline, profiling, dev, smi, tag):
     """The op-rate microbenchmark kernel: each case against its plain
-    version at the tool's default shape (bit-equal in the ``--fmad=false``
-    build), then each case's element-op rate beside its bound, and the fma
-    case with contraction on."""
+    version at the tool's default shape (bit-equal), each case's
+    element-op rate beside its bound, the hand-written ``sqrt``, ``div``
+    and ``recip`` against PyTorch's operations over every exponent and the
+    specials (bit-equal), and the SM clock the card holds under ``fma``
+    and ``div``."""
     tile, grid, reps, ns = 128, 512, 512, 4
     sms, clock = roofline.card_limits(dev)
     rows = {}
@@ -905,12 +909,7 @@ def roofline_phase(rk, roofline, profiling, dev, smi, tag):
         rate, t = roofline.measure(name, tile, grid, reps, ns, device=dev)
         b = roofline.bound_seconds(name, tile, grid, reps, ns, sms, clock)
         rows[name].update(rate=rate, ms=t * 1e3, bound_ms=b * 1e3)
-    rate_c, t_c = roofline.measure("fma", tile, grid, reps, ns, device=dev,
-                                   contract=True)
     x = torch.full((ns, tile, rk.LANES), 1.234, device=dev)
-    kc = rk.roofline_fused("fma", x, grid, reps, contract=True)
-    pc = rk.roofline_plain("fma", x, grid, reps)
-    contract_bits = int((kc.view(torch.int32) != pc.view(torch.int32)).sum())
     plain_s = profiling.time_fn(
         lambda v: rk.roofline_plain("fma", v, grid, reps), lambda: (x,),
         iters=3, warmup=1, bursts=3, device=dev)["median"]
@@ -919,17 +918,36 @@ def roofline_phase(rk, roofline, profiling, dev, smi, tag):
               f"{n} {r['rate'] / 1e12:.3f} Top/s ({r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%})"
               for n, r in rows.items())
-          + f"; fma with contraction {rate_c / 1e12:.3f} Top/s "
-          f"({t_c * 1e3:.4f} ms, {contract_bits} bits differ from plain); "
-          f"plain fma {plain_s * 1e3:.4f} ms", flush=True)
+          + f"; plain fma {plain_s * 1e3:.4f} ms", flush=True)
+    sweep = roofline.ieee_sweep(dev)
+    print(f"[{tag}c roofline IEEE sweep] a = -0.0, 1 and 9 steps over "
+          f"every pattern of [1, 4), 2^23 over all exponents and the "
+          f"specials; div over {len(roofline.sweep_dividends())} dividends: "
+          + "; ".join(
+              f"{n} {r['operands']} compared, {r['mismatches']} differ from "
+              f"torch{' ' + str(r['first']) if r['first'] else ''}"
+              for n, r in sweep.items()) + " (limit 0)", flush=True)
+    check(all(r["mismatches"] == 0 for r in sweep.values()),
+          "the kernel's sqrt/div/recip differ from PyTorch's")
+    clocks = {n: roofline.held_clock_mhz(n, dev) for n in ("fma", "div")}
+    held = statistics.median(clocks["fma"])
+    print(f"[{tag}d roofline clock] SM clock while the case runs "
+          f"(nvidia-smi clocks.sm, MHz): " + "; ".join(
+              f"{n} {v}" for n, v in clocks.items())
+          + f"; the bounds take clocks.max.sm {clock / 1e6:.0f} MHz; at the "
+          f"clock held under fma, {held:.0f} MHz, the shares are "
+          + ", ".join(f"{n} {r['bound_ms'] * clock / 1e6 / held / r['ms']:.1%}"
+                      for n, r in rows.items() if n in ("fma", "mul", "add",
+                                                        "div"))
+          + f"; on {smi}", flush=True)
     dev_ms = device_ms(lambda: rk.roofline_fused("fma", x, grid, reps),
                        "roofline_f32")
     # the fma case's bound for the kernel table: its dispatch-bound time, or the
     # block read and the output written at the memory rate if longer
     ops_ms = rows["fma"]["bound_ms"]
-    bytes_ms = (nbytes(x) + nbytes(kc)) / HBM_BYTES_PER_S * 1e3
-    return {"rows": rows, "contract_rate": rate_c, "contract_ms": t_c * 1e3,
-            "contract_bit_mismatches": contract_bits,
+    out_bytes = grid * tile * rk.LANES * x.element_size()
+    bytes_ms = (nbytes(x) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"rows": rows, "sweep": sweep, "clocks_mhz": clocks,
             "ms": rows["fma"]["ms"], "device_ms": dev_ms,
             "plain_ms": plain_s * 1e3,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -939,21 +957,22 @@ def roofline_phase(rk, roofline, profiling, dev, smi, tag):
 
 def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
     """``python -m zoic_tpu_torch.bench``'s headline at the full batch,
-    iterations cut: its JSON line on a line of its own, checked, and the
-    launches of the path (the microbenchmark for the peak, the raytraced
-    kernel for the rays)."""
+    iterations cut: its JSON line on a line of its own, checked, its
+    bursts and their spread, and the launches of the path (the
+    microbenchmark for the peak, the raytraced kernel for the rays)."""
     from zoic_tpu_torch import bench
 
-    buf = io.StringIO()
+    buf, err = io.StringIO(), io.StringIO()
     reset_counts(trace_kernel, bokeh_kernel, rk)
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         bench.main(list(BENCH_ARGS))
     n_rt, n_roof = trace_kernel.launches, rk.launches
+    print(err.getvalue().rstrip(), flush=True)
     line = buf.getvalue().strip().splitlines()[-1]
     print(line, flush=True)
     res = json.loads(line)
     keys = ("metric", "value", "unit", "vs_baseline", "attempts_per_ray",
-            "vignetted_frac", "peak_tops", "mfu", "device")
+            "vignetted_frac", "peak_tops", "mfu", "device", "spread")
     check(all(k in res for k in keys), f"bench line lacks keys: {res}")
     check(res["device"] == kind, f"bench ran on {res['device']}")
     for k in ("value", "peak_tops", "mfu", "attempts_per_ray"):
@@ -962,7 +981,10 @@ def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
           "bench headline attempts/ray or vignetted fraction off")
     check(n_rt > 0 and n_roof > 0,
           f"bench path launches: raytraced {n_rt}, roofline {n_roof}")
-    print(f"[{tag} bench] {' '.join(BENCH_ARGS)}: launches raytraced {n_rt}, "
+    check(math.isfinite(res["spread"]) and res["spread"] >= 0.0,
+          f"bench spread = {res['spread']}")
+    print(f"[{tag} bench] {' '.join(BENCH_ARGS)}: {bench.BURSTS} bursts, "
+          f"spread {res['spread']:.2%}; launches raytraced {n_rt}, "
           f"roofline {n_roof}, thinlens {trace_kernel.thinlens_launches}, "
           f"bokeh {bokeh_kernel.launches}", flush=True)
     return {"launches": n_roof, "raytraced_launches": n_rt, "result": res}
@@ -1686,10 +1708,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     _build.load_all(BUILDS)
-    print(f"[2 build] csrc/{{{','.join(KERNELS)}}}.cu for sm_90a, roofline "
-          f"also with contraction, raytraced and thinlens also counting "
-          f"lanes, in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
-          flush=True)
+    print(f"[2 build] csrc/{{{','.join(KERNELS)}}}.cu for sm_90a, raytraced "
+          f"and thinlens also counting lanes, in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc)", flush=True)
 
     state = zt.load_state(zt.data.state_path(), device=dev)
     print(f"[3 inputs] state {zt.data.HEADLINE} on {dev}, {state.lens.count} "
@@ -1869,7 +1890,6 @@ def main() -> None:
         "bound_by": roof["bound_by"],
         "library_ms": None,
         "config": "fma",
-        "contract_ms": roof["contract_ms"],
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
           and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,
@@ -1883,7 +1903,9 @@ def main() -> None:
                            for n, r in roof["rows"].items()},
         "roofline_bound_share": {n: r["bound_ms"] / r["ms"]
                                  for n, r in roof["rows"].items()},
-        "fma_contract_top_s": roof["contract_rate"] / 1e12,
+        "roofline_ieee_sweep": {n: [r["operands"], r["mismatches"]]
+                                for n, r in roof["sweep"].items()},
+        "roofline_clocks_mhz": roof["clocks_mhz"],
         "bokeh_images": bk_rows,
         "lanes_per_warp_trace": {n: r["lanes_per_warp_trace"]
                                  for n, r in lanes.items()

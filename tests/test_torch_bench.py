@@ -22,7 +22,7 @@ from _torch_threads import one_thread  # noqa: F401
 
 SMALL = ["--batch", "4096", "--iters", "1", "--inner", "1", "--device", "cpu"]
 KEYS = {"metric", "value", "unit", "vs_baseline", "attempts_per_ray",
-        "vignetted_frac", "peak_tops", "mfu", "device"}
+        "vignetted_frac", "peak_tops", "mfu", "device", "spread"}
 
 
 def test_headline_prints_one_json_line(capsys):
@@ -40,6 +40,7 @@ def test_headline_prints_one_json_line(capsys):
         res["value"] * bench.USEFUL_OPS_PER_RAY / (res["peak_tops"] * 1e12))
     assert 1.0 <= res["attempts_per_ray"] <= 3.0
     assert 0.0 <= res["vignetted_frac"] < 0.01
+    assert res["spread"] >= 0.0
     assert "compile" in out.err and "peak element-op rate" in out.err
 
 
@@ -51,6 +52,32 @@ def test_all_only_thinlens(capsys):
              if "rays/s" in ln]
     assert names == ["thinlens_f1.4", "thinlens_vignette",
                      "thinlens_bokeh_image"]
+
+
+def test_bursts_and_spread_on_every_line(capsys):
+    """``--bursts 5``: each camera's line gives its spread over 5 bursts and
+    a second line the 5 bursts' device, host and CPU times, the CPU probe,
+    context switches, allocator calls and collector runs; the headline's
+    JSON line has ``spread``, ``(max - min) / median`` of the rates."""
+    bench.main(SMALL + ["--bursts", "5", "--no-precheck", "--all", "--only",
+                        "thinlens_f1.4,headline"])
+    out = capsys.readouterr()
+    res = json.loads(out.out.strip().splitlines()[-1])
+    assert set(res) == KEYS and res["spread"] >= 0.0
+    err = out.err.splitlines()
+    for name in ("thinlens_f1.4", "headline"):
+        line = next(ln for ln in err if ln.strip().startswith(f"{name}:"))
+        assert "spread" in line and "over 5 bursts" in line
+        detail = next(ln for ln in err
+                      if ln.strip().startswith(f"{name} bursts:"))
+        for key in ("device ms", "host ms", "thread cpu ms",
+                    "process cpu ms", "probe ms",
+                    "switches", "allocs"):
+            assert len(detail.split(key)[1].split(";")[0].split("/")) == 5
+        assert len(detail.split("gc runs")[1].split("(")[0].split("/")) == 5
+    assert bench.spread([2.0, 1.0, 4.0]) == pytest.approx(1.5)
+    with pytest.raises(SystemExit):
+        bench.main(SMALL + ["--bursts", "0"])
 
 
 def _headline_line(capsys):

@@ -460,9 +460,11 @@ def test_thinlens_create_rays_on_cuda(cuda_dev, tmp_path):
     "min", "floor", "i32mix", "f2i"])
 def test_roofline_kernel_matches_plain_bit_for_bit(cuda_dev, name, n_streams):
     """Each op chain of the microbenchmark kernel, built with
-    ``--fmad=false``, against its plain version on random inputs: the
-    kernel runs the plain version's ops in its order, so every bit
-    agrees."""
+    ``--fmad=false``, against its plain version on random inputs, 37 steps
+    (four blocks of 8 and a tail for the written-out sqrt, div and recip):
+    the kernel runs the plain version's ops in its order, its one FFMA for
+    ``x * 0.5 + 1.25`` rounding as the exact product's sum does, so every
+    bit agrees."""
     from zoic_tpu_torch.ops import roofline_kernel as rk
 
     rng = np.random.default_rng(n_streams)
@@ -483,22 +485,40 @@ def test_roofline_kernel_matches_plain_bit_for_bit(cuda_dev, name, n_streams):
 
 @pytest.mark.cuda
 def test_roofline_contracted_fma_and_refusals(cuda_dev):
-    """The build with contraction on launches and stays within a few ulp
-    of the plain chain; the wrapper refuses shapes and stream counts the
-    kernel has no instance for."""
+    """The fma chain, one FFMA a step in the one build (the contracted
+    build it once needed is gone), equals the plain two-rounding chain bit
+    for bit at the tool's value over 512 steps; the wrapper refuses shapes
+    and stream counts the kernel has no instance for, and ``contract``."""
     from zoic_tpu_torch.ops import roofline_kernel as rk
 
     x = torch.full((4, 8, 128), 1.234, device=cuda_dev)
-    k = rk.roofline_fused("fma", x, 2, 64, contract=True)
-    p = rk.roofline_plain("fma", x, 2, 64)
+    k = rk.roofline_fused("fma", x, 2, 512)
+    p = rk.roofline_plain("fma", x, 2, 512)
     torch.cuda.synchronize()
-    assert float((k - p).abs().max()) <= 1e-5
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
     with pytest.raises(ValueError, match="n_streams"):
         rk.roofline_fused("fma", torch.ones((3, 8, 128), device=cuda_dev), 1, 1)
     with pytest.raises(ValueError, match="shape"):
         rk.roofline_fused("fma", torch.ones((4, 8, 64), device=cuda_dev), 1, 1)
     with pytest.raises(ValueError, match="int32"):
         rk.roofline_fused("i32mix", x, 1, 1)
+    with pytest.raises(TypeError):
+        rk.roofline_fused("fma", x, 1, 1, contract=True)
+
+
+@pytest.mark.cuda
+def test_roofline_ieee_sweep(cuda_dev):
+    """The kernel's written-out sqrt, div and recip equal PyTorch's on the
+    card over every pattern of [1, 4), 2^23 patterns across all exponents
+    and the specials, div over 142 dividends, at 1 and 9 steps (NaN as
+    NaN)."""
+    from zoic_tpu_torch.tools import roofline
+
+    res = roofline.ieee_sweep(cuda_dev)
+    assert set(res) == {"sqrt", "div", "recip"}
+    for name, r in res.items():
+        assert r["operands"] >= 2 * 25_165_824, name
+        assert r["mismatches"] == 0, (name, r["first"])
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """Benchmark: camera rays per second on one card, the port's ``bench.py``.
 
     python -m zoic_tpu_torch.bench [--batch 4194304] [--iters 7] [--inner 32]
-        [--all] [--only NAMES] [--random-order] [--max-tries N]
+        [--bursts 7] [--all] [--only NAMES] [--random-order] [--max-tries N]
         [--no-precheck] [--mesh] [--device cuda]
 
 Each camera is compiled by the port from its lens file
@@ -14,10 +14,11 @@ bokeh from a 64x64 disk, and the Petzval f/1.25 and telephoto f/5 at focus
 line with ``bench.py``'s keys: ``metric``, ``value`` (rays/s),
 ``unit``, ``vs_baseline`` (value / 1e9, ``bench.py``'s definition),
 ``attempts_per_ray``, ``vignetted_frac``, ``peak_tops`` and ``mfu``, plus
-``device``, the card it ran on.  ``--mesh`` splits the headline's batch
-over every visible card (:mod:`zoic_tpu_torch.parallel.sharding`); on more
-than one the metric is ``camera_rays_per_sec_mesh{n}_double_gauss`` and
-``vs_baseline`` is per card, as in ``bench.py``.
+``device``, the card it ran on, and ``spread``, the bursts' spread.
+``--mesh`` splits the headline's batch over every visible card
+(:mod:`zoic_tpu_torch.parallel.sharding`); on more than one the metric
+is ``camera_rays_per_sec_mesh{n}_double_gauss`` and ``vs_baseline`` is per
+card, as in ``bench.py``.
 
 Method: screen samples in raster order (a renderer's bucket order), fixed;
 lens samples fresh every generation, drawn with ``torch.rand`` on the
@@ -26,8 +27,16 @@ step (one generator per card of the mesh); a retry seed per generation
 from a host generator.  Every output is
 consumed (``sum(weight) + sum(dir[:, 0])``).  A burst of ``iters`` steps of
 ``inner`` generations is timed between two CUDA events; the rate is the
-median of 3 bursts after warm-up, and attempts/ray and the vignetted
-fraction come from the timed loop's own ``RayStats``.
+median of ``--bursts`` bursts (7) after warm-up, and attempts/ray and the
+vignetted fraction come from the timed loop's own ``RayStats``.  The
+spread is ``(max - min) / median`` of the bursts' rates.  The loop is
+host-bound on the thin-lens cameras (about 30 eager launches a
+generation), so each camera's second stderr line gives per burst what
+shows the host's part: the device time (events), the host time of the
+enqueue, the CPU time of the host thread and of the whole process, a
+fixed pure-Python loop's time just before the burst (the host CPU's
+speed), the thread's involuntary context switches, the caching
+allocator's device calls and the collector's runs.
 
 ``peak_tops`` is the card's element-op rate, the highest of the f32
 ``fma``, ``mul`` and ``add`` chains that the op-rate microbenchmark
@@ -41,8 +50,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
+import resource
 import statistics
 import sys
 import time
@@ -61,6 +72,7 @@ USEFUL_OPS_PER_RAY = 560 * 1.22 + 72 * 0.9
 BASELINE_RAYS_PER_SEC = 1e9  # vs_baseline's denominator (bench.py)
 METRIC = "camera_rays_per_sec_chip_double_gauss_f2.0_lut"
 MESH_METRIC = "camera_rays_per_sec_mesh{n}_double_gauss"
+BURSTS = 7
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -81,13 +93,61 @@ def screen_samples(n: int, device, raster: bool = True, seed: int = 0):
     return v[0] * 2.0 - 1.0, v[1] * 2.0 - 1.0
 
 
+class _GcWatch:
+    """Runs of Python's garbage collector and their host seconds, from
+    ``gc.callbacks`` while registered."""
+
+    def __init__(self):
+        self.runs, self.seconds, self._t0 = 0, 0.0, None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.runs += 1
+            self.seconds += time.perf_counter() - self._t0
+            self._t0 = None
+
+
+def _thread_usage():
+    """``(CPU seconds of this thread, of the whole process, involuntary
+    context switches of this thread)``."""
+    return (time.thread_time(), time.process_time(),
+            resource.getrusage(resource.RUSAGE_THREAD).ru_nivcsw)
+
+
+def _cpu_probe() -> float:
+    """Host seconds of a fixed pure-Python loop: the host CPU's speed at
+    the moment, apart from PyTorch and CUDA."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(20_000):
+        acc += i * i
+    return time.perf_counter() - t0
+
+
+def _device_allocs(dev) -> int:
+    """The caching allocator's ``cudaMalloc`` and ``cudaFree`` calls so
+    far on ``dev`` (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    st = torch.cuda.memory_stats(dev)
+    return st.get("num_device_alloc", 0) + st.get("num_device_free", 0)
+
+
+def spread(rates) -> float:
+    """``(max - min) / median`` of the bursts' rates."""
+    return (max(rates) - min(rates)) / statistics.median(rates)
+
+
 def bench_config(cfg: zt.CameraConfig, n: int, iters: int, inner: int = 16,
                  warmup: int = 2, raster: bool = True, device="cuda",
-                 mesh: sharding.Mesh = None) -> dict:
+                 mesh: sharding.Mesh = None, bursts: int = BURSTS) -> dict:
     """Compile ``cfg`` on ``device`` and time ``create_rays`` at batch
     ``n``, or, with a ``mesh``, the batch split over its devices (compiled
-    on the first).  Returns rays/s, attempts/ray, the vignetted fraction
-    and the compile's seconds."""
+    on the first), in ``bursts`` bursts.  Returns rays/s (the median
+    burst), the spread, each burst's record, attempts/ray, the vignetted
+    fraction and the compile's seconds."""
     devs = (torch.device(device),) if mesh is None else mesh.devices
     dev = devs[0]
     cuda = dev.type == "cuda"
@@ -113,7 +173,7 @@ def bench_config(cfg: zt.CameraConfig, n: int, iters: int, inner: int = 16,
     # some 40 launches that would time the sampler, not the camera
     gens = [torch.Generator(device=d).manual_seed(42 + k)
             for k, d in enumerate(devs)]
-    seeds = torch.randint(0, 1 << 22, ((warmup + 3 * iters) * inner,),
+    seeds = torch.randint(0, 1 << 22, ((warmup + bursts * iters) * inner,),
                           generator=torch.Generator().manual_seed(42)).tolist()
 
     def draws():
@@ -148,34 +208,71 @@ def bench_config(cfg: zt.CameraConfig, n: int, iters: int, inner: int = 16,
     for k in range(warmup):
         step(k)
     sync()
-    rates = []
+    rates, record = [], []
     vig_sum = tries_sum = 0
-    for rep in range(3):
-        outs = []
-        if cuda:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-        start = time.perf_counter()
-        for i in range(iters):
-            outs.append(step(warmup + rep * iters + i))
-        if cuda:
-            # the sums gathered on the first card wait for every card
-            e1.record()
-            e1.synchronize()
-            dt = e0.elapsed_time(e1) / 1e3
-        else:
-            dt = time.perf_counter() - start
-        rates.append(inner * n * iters / dt)
-        vig_sum += sum(int(o[1]) for o in outs)
-        tries_sum += sum(int(o[2]) for o in outs)
-    total = 3 * iters * inner * n
+    watch = _GcWatch()
+    gc.callbacks.append(watch)
+    try:
+        for rep in range(bursts):
+            outs = []
+            probe = _cpu_probe()
+            allocs = _device_allocs(dev)
+            runs, gc_s = watch.runs, watch.seconds
+            cpu0, proc0, switches0 = _thread_usage()
+            if cuda:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            start = time.perf_counter()
+            for i in range(iters):
+                outs.append(step(warmup + rep * iters + i))
+            host = time.perf_counter() - start
+            cpu1, proc1, switches1 = _thread_usage()
+            if cuda:
+                # the sums gathered on the first card wait for every card
+                e1.record()
+                e1.synchronize()
+                dt = e0.elapsed_time(e1) / 1e3
+            else:
+                dt = host
+            rates.append(inner * n * iters / dt)
+            record.append({"device_s": dt, "host_s": host,
+                           "cpu_s": cpu1 - cpu0,
+                           "process_cpu_s": proc1 - proc0, "probe_s": probe,
+                           "switches": switches1 - switches0,
+                           "allocs": _device_allocs(dev) - allocs,
+                           "gc_runs": watch.runs - runs,
+                           "gc_s": watch.seconds - gc_s})
+            vig_sum += sum(int(o[1]) for o in outs)
+            tries_sum += sum(int(o[2]) for o in outs)
+    finally:
+        gc.callbacks.remove(watch)
+    total = bursts * iters * inner * n
     return {
         "rays_per_sec": statistics.median(rates),
+        "spread": spread(rates),
+        "bursts": record,
         "vignetted_frac": vig_sum / total,
         "attempts_per_ray": 1.0 + tries_sum / total,
         "compile_s": compile_s,
     }
+
+
+def burst_line(name: str, r: dict) -> str:
+    """One stderr line of ``r``'s bursts: device and host ms, the host
+    thread's and the process's CPU ms, the CPU probe's ms before the
+    burst, involuntary switches, allocator calls, the collector's runs."""
+    def ms(key):
+        return "/".join(f"{b[key] * 1e3:.2f}" for b in r["bursts"])
+
+    def count(key):
+        return "/".join(str(b[key]) for b in r["bursts"])
+    return (f"    {name} bursts: device ms {ms('device_s')}; host ms "
+            f"{ms('host_s')}; thread cpu ms {ms('cpu_s')}; process cpu ms "
+            f"{ms('process_cpu_s')}; probe ms {ms('probe_s')}; switches "
+            f"{count('switches')}; allocs {count('allocs')}; gc runs "
+            f"{count('gc_runs')} "
+            f"({sum(b['gc_s'] for b in r['bursts']) * 1e3:.2f} ms)")
 
 
 def configs(bokeh_path: str) -> dict:
@@ -229,6 +326,8 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=1 << 22)
     ap.add_argument("--iters", type=int, default=7)
     ap.add_argument("--inner", type=int, default=32)
+    ap.add_argument("--bursts", type=int, default=BURSTS,
+                    help="timed bursts a camera; the rate is their median")
     ap.add_argument("--random-order", action="store_true",
                     help="shuffled sample order instead of raster order")
     ap.add_argument("--mesh", action="store_true",
@@ -245,6 +344,8 @@ def main(argv=None) -> None:
                     help="disable the headline's pupil pre-check")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.bursts < 1:
+        ap.error(f"--bursts must be at least 1, got {args.bursts}")
     if args.only:
         args.all = True  # --only filters the --all table
     dev = torch.device(args.device)
@@ -273,12 +374,14 @@ def main(argv=None) -> None:
             if args.only and not any(s in name for s in args.only.split(",")):
                 continue
             r = bench_config(cfg, args.batch, args.iters, args.inner,
-                             device=dev)
-            print(f"  {name}: {r['rays_per_sec']:.3e} rays/s (vignetted "
+                             device=dev, bursts=args.bursts)
+            print(f"  {name}: {r['rays_per_sec']:.3e} rays/s (spread "
+                  f"{r['spread']:.2%} over {args.bursts} bursts, vignetted "
                   f"{r['vignetted_frac']:.6f}, {r['attempts_per_ray']:.6f} "
                   f"attempts/ray, mfu "
                   f"{r['rays_per_sec'] * USEFUL_OPS_PER_RAY / peak:.4f}, "
                   f"compile {r['compile_s']:.2f} s)", file=sys.stderr)
+            print(burst_line(name, r), file=sys.stderr)
 
     if args.only and "headline" not in args.only:
         return
@@ -288,8 +391,12 @@ def main(argv=None) -> None:
                 else sharding.make_mesh([dev]))
     n_dev = 1 if mesh is None else mesh.size
     res = bench_config(headline, args.batch, args.iters, args.inner,
-                       raster=not args.random_order, device=dev, mesh=mesh)
-    print(f"  headline: compile {res['compile_s']:.2f} s", file=sys.stderr)
+                       raster=not args.random_order, device=dev, mesh=mesh,
+                       bursts=args.bursts)
+    print(f"  headline: {res['rays_per_sec']:.3e} rays/s (spread "
+          f"{res['spread']:.2%} over {args.bursts} bursts, compile "
+          f"{res['compile_s']:.2f} s)", file=sys.stderr)
+    print(burst_line("headline", res), file=sys.stderr)
     print(json.dumps({
         "metric": METRIC if n_dev == 1 else MESH_METRIC.format(n=n_dev),
         "value": res["rays_per_sec"],
@@ -300,6 +407,7 @@ def main(argv=None) -> None:
         "peak_tops": peak / 1e12,
         "mfu": res["rays_per_sec"] * USEFUL_OPS_PER_RAY / peak,
         "device": device_name,
+        "spread": res["spread"],
     }), flush=True)
 
 

@@ -9,8 +9,8 @@ one ``nvcc`` process each.  The target is
 Hopper (``sm_90a``); fma contraction is off (``--fmad=false``) so that the
 kernels round like the eager PyTorch versions they are held against.  A
 source can also be built with contraction on (``fmad=True``), as a library
-of its own (``lib<name>-fmad-<hash>.so``): the op-rate microbenchmark
-measures both builds.  Preprocessor ``defines`` make a library of their own
+of its own (``lib<name>-fmad-<hash>.so``), to measure what contraction
+changes in a kernel's time and bits.  Preprocessor ``defines`` make a library of their own
 too (``lib<name>-<define>-<hash>.so``): the camera kernels' lane-counting
 builds (``ZOIC_COUNT_LANES``).  Every build runs with ``-Xptxas -v``; what
 it reports (registers, shared memory, spills per kernel) is kept beside the

@@ -10,8 +10,11 @@ Port of the TPU kernel ``tools/roofline.py:_make_kernel`` (launched by
 output is ``[grid * tile, 128]``.
 
 :func:`roofline_fused` launches ``csrc/roofline.cu`` for CUDA tensors, built
-with ``--fmad=false`` or, with ``contract=True``, with fma contraction on;
-CPU tensors run :func:`roofline_plain`.
+with ``--fmad=false`` as every kernel of the port; CPU tensors run
+:func:`roofline_plain`.  Both take the chain's operands ``a`` and ``b`` as
+keywords, :data:`A` and :data:`B` by default: ``reps=1`` with ``a=-0.0``
+(which leaves every value as it is, ``-0`` included) holds one step of
+``sqrt``, ``div`` or ``recip`` to PyTorch's own operation on any operands.
 """
 
 from __future__ import annotations
@@ -77,11 +80,18 @@ def chain_step(name: str, x: Tensor, a: Tensor, b: Tensor) -> Tensor:
     raise ValueError(f"unknown roofline case {name!r}")
 
 
-def operands(name: str, device):
-    """The chain's ``(a, b)`` as 0-d tensors on ``device``."""
-    v = (0, 0) if name == "i32mix" else (A, B)
+def scalars(name: str, a=None, b=None) -> tuple:
+    """The chain's ``(a, b)``: the arguments where given, else the case's
+    defaults (:data:`A`, :data:`B`; 0 and 0 for ``i32mix``)."""
+    da, db = (0, 0) if name == "i32mix" else (A, B)
+    return (da if a is None else a), (db if b is None else b)
+
+
+def operands(name: str, device, a=None, b=None):
+    """The chain's ``(a, b)`` (:func:`scalars`) as 0-d tensors on
+    ``device``."""
     return tuple(torch.tensor(s, dtype=dtype_of(name), device=device)
-                 for s in v)
+                 for s in scalars(name, a, b))
 
 
 def _check(name: str, x: Tensor, grid: int, reps: int) -> None:
@@ -96,11 +106,12 @@ def _check(name: str, x: Tensor, grid: int, reps: int) -> None:
         raise ValueError(f"grid must be >= 1 and reps >= 0, got {grid}, {reps}")
 
 
-def roofline_plain(name: str, x: Tensor, grid: int, reps: int) -> Tensor:
+def roofline_plain(name: str, x: Tensor, grid: int, reps: int, *, a=None,
+                   b=None) -> Tensor:
     """Plain PyTorch version on any device: the chain over the whole block
     as tensor ops, the streams combined, the block tiled over ``grid``."""
     _check(name, x, grid, reps)
-    a, b = operands(name, x.device)
+    a, b = operands(name, x.device, a, b)
     xs = list(x.unbind(0))
     for _ in range(reps):
         xs = [chain_step(name, v, a, b) for v in xs]
@@ -110,8 +121,8 @@ def roofline_plain(name: str, x: Tensor, grid: int, reps: int) -> Tensor:
     return acc.repeat(grid, 1)
 
 
-def _kernel_fn(contract: bool):
-    fn = _build.load("roofline", fmad=contract).zoic_roofline_launch
+def _kernel_fn():
+    fn = _build.load("roofline").zoic_roofline_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int64,
@@ -121,16 +132,16 @@ def _kernel_fn(contract: bool):
     return fn
 
 
-def roofline_fused(name: str, x: Tensor, grid: int, reps: int, *,
-                   contract: bool = False) -> Tensor:
+def roofline_fused(name: str, x: Tensor, grid: int, reps: int, *, a=None,
+                   b=None) -> Tensor:
     """Case ``name`` over ``x[n_streams, tile, 128]`` (float32, int32 for
-    ``i32mix``) for ``grid`` steps of ``reps`` iterations: returns ``[grid *
-    tile, 128]``.  CUDA tensors launch ``csrc/roofline.cu`` (``contract``
-    picks the build with fma contraction on); CPU tensors run
+    ``i32mix``) for ``grid`` steps of ``reps`` iterations with the operands
+    ``a`` and ``b`` (:func:`scalars`): returns ``[grid * tile, 128]``.  CUDA
+    tensors launch ``csrc/roofline.cu``; CPU tensors run
     :func:`roofline_plain`."""
     global launches
     if x.device.type == "cpu":
-        return roofline_plain(name, x, grid, reps)
+        return roofline_plain(name, x, grid, reps, a=a, b=b)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(name, x, grid, reps)
@@ -139,8 +150,8 @@ def roofline_fused(name: str, x: Tensor, grid: int, reps: int, *,
         raise ValueError(f"n_streams must be one of {STREAMS}, got {n_streams}")
     x = x.contiguous()
     out = torch.empty((grid * tile, LANES), dtype=x.dtype, device=x.device)
-    a, b = (0.0, 0.0) if name == "i32mix" else (A, B)
-    fn = _kernel_fn(contract)
+    a, b = scalars(name, a, b)
+    fn = _kernel_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(CASES.index(name), x.data_ptr(), out.data_ptr(), n_streams,
