@@ -55,7 +55,11 @@ rays), through the entry points a user calls:
   four lenses no shipped camera uses also with the kernel held to its
   plain version on the frame's samples and timed at the full batch; and
   ``python -m zoic_tpu_torch.examples.lens_optimization``, 60 Adam steps on
-  the card, its first losses against the CPU's.
+  the card, its first losses against the CPU's;
+* the entry points (phase 35): ``zoic_tpu_torch.entry.entry()``'s
+  forward step on its 65,536 example samples, twice, bit-equal between the
+  calls and to ``create_rays``, and ``dryrun_multichip`` over every
+  visible card, its eager pass and its kernel pass.
 
 The raytraced kernel schedules its rays dynamically (warps take whichever
 rays are ready), so it is also held to what must not depend on the
@@ -64,7 +68,7 @@ that do not fill a warp, a block or the persistent grid equal the plain
 version, and the kernel's lane-counting build (how full the warps are when
 they draw and trace, on five cameras) gives the main build's tries.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--primer-cycles N]
 
 Phases, one line each: the device; the kernel builds (six ``nvcc`` runs
 in parallel: four sources, the two camera kernels' counting builds); then
@@ -72,7 +76,10 @@ per camera the run through ``create_rays`` checked for launches, finite
 outputs and its run counters, the kernel against its plain PyTorch
 version on the same inputs, and timings with
 CUDA events and, for the kernel's own time on the card, torch.profiler,
-with the call's device time split per kernel; the bokeh kernel against
+with the call's device time split per kernel (a profiler reading is used
+only where its window kept one record per call and events >= card >=
+bound holds; else it reads "no reading", null in the JSON); the bokeh
+kernel against
 its plain version on 4,194,304 draws (bit-equal) on both of its paths
 (tables in shared memory: the 64x64 disk and a 128x128 disk; in global
 memory: a 300x200 image), and its retry-plane entry against the eager
@@ -84,16 +91,18 @@ compile times by CUDA events and the host clock, the eager path beside
 the kernel, the bench's ``--mesh`` JSON line); the diagnostics (the
 tape's time beside ``create_rays``' with and without draw mode); the
 examples (per lens the compile's seconds, the render's time, vignetting,
-the tape's segments and the coverage; the optimisation's losses).  Then the
-summary line, one JSON line per the
-kernel table (five entries: the four sources, the bokeh source's plane
-entry apart), the card's name and power limit from nvidia-smi, and last
-``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
+the tape's segments and the coverage; the optimisation's losses); the
+entry points (shapes, launches, the dry run's counters).  Then the
+summary line (with the profiler readings taken and rejected), one JSON
+line of the kernel table (five entries: the four sources, the bokeh
+source's plane entry apart), the card's name and power limit from
+nvidia-smi, and last ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
 It needs a CUDA card and ``nvcc``, and imports nothing of jax.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -154,6 +163,14 @@ DRAW_OPS = 72
 TRACE_OPS = 560
 PROFILED_CALLS = 5
 PROFILE_WINDOWS = 3
+# the kernel that opens each profiler window, torch.cuda._sleep's, spinning
+# PRIMER_CYCLES clocks (PERF.md section 7); --primer-cycles 0 opens the
+# windows without it
+PRIMER = "spin_kernel"
+PRIMER_CYCLES = 1000
+# the profiler's readings: taken (a window passed its checks), and rejected
+# (no window did: "no reading"); taken + rejected are the readings tried
+READINGS = {"taken": 0, "rejected": 0}
 # the card's published peaks (H100 SXM datasheet): HBM
 # bytes/s, and float32 outside the tensor cores, 67 TFLOP/s counting an FMA
 # as two; one element-op per lane per clock is half of it
@@ -287,70 +304,135 @@ def time_ms(fn, make_args, warmup=3, iters=10):
     return times
 
 
-def profiled_kernels(fn, match: str, calls: int = PROFILED_CALLS):
-    """torch.profiler's averages of the kernels (and copies) that ran on
-    the card during ``calls`` calls of ``fn()``, after one warm-up call.
-    The profiler may lose the records of a window: a window in which no
-    kernel's name holds ``match`` is profiled again, up to
-    ``PROFILE_WINDOWS`` times, the repeats with device activity alone
-    (late in this script a window of host and device activity has kept
-    no device record at all where one of device activity kept them)."""
+def profile_window(fn, host: bool):
+    """One torch.profiler window of ``PROFILED_CALLS`` calls of ``fn()``,
+    with host and device activity (a trace written under
+    ``build/chip_smoke/trace``) or the device's alone: ``(records,
+    calls)``, each record on the card ``(name, us, start ms, end ms)`` and
+    ``calls`` the host's ms of the first call and of the synchronise's
+    return, all from the window's start.  The window opens with a short
+    ``PRIMER`` kernel and a synchronise, and its record is dropped: late in
+    a long process the profiler lost the first launches of a window
+    (PERF.md section 7)."""
     from zoic_tpu_torch.utils import profiling
 
-    fn()
-    torch.cuda.synchronize()
     log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke", "trace")
-    for window in range(PROFILE_WINDOWS):
-        with (profiling.trace(log_dir) if window == 0 else
-              torch.profiler.profile(activities=[
-                  torch.profiler.ProfilerActivity.CUDA])) as prof:
-            for _ in range(calls):
-                fn()
+    with (profiling.trace(log_dir) if host else torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])) as prof:
+        t_in = time.perf_counter()
+        if PRIMER_CYCLES:
+            torch.cuda._sleep(PRIMER_CYCLES)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.device_time_total > 0]
-        if any(match in e.key for e in events):
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    records = [(e.name, e.device_time_total, e.time_range.start / 1e3,
+                e.time_range.end / 1e3) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.device_time_total > 0 and PRIMER not in e.name]
+    return records, ((t0 - t_in) * 1e3, (t1 - t_in) * 1e3)
+
+
+def card_reading(fn, match: str, events_ms: float, bound_ms: float,
+                 tag: str, whole_call: bool = False):
+    """The time on the card of the kernel whose name holds ``match``, per
+    call of ``fn()`` (each call launches it once), by torch.profiler.
+
+    After one warm-up call, a window (host and device activity) must keep
+    exactly ``PROFILED_CALLS`` records of the kernel (fewer are records
+    lost, more are foreign ones) and their mean must satisfy ``events_ms
+    >= card >= bound_ms``: ``events_ms`` the median of the same calls by
+    CUDA events, ``bound_ms`` the least time the card could take.  A window
+    that fails is not used and the device alone is profiled again, up to
+    ``PROFILE_WINDOWS`` windows in all; where none passes the reading is
+    None ("no reading").  With ``whole_call`` (``fn`` a ``create_rays``)
+    the reading also splits the call's device time: every other kernel's
+    mean times its launches a call, the sum held under ``events_ms``.
+    Prints each window's record count on one line under ``tag``; counts
+    the reading in ``READINGS``."""
+    fn()
+    torch.cuda.synchronize()
+    want, notes = PROFILED_CALLS, []
+    for window in range(PROFILE_WINDOWS):
+        records, (first_call, synced) = profile_window(fn, host=window == 0)
+        mine = [r for r in records if match in r[0]]
+        own = [r[1] / 1e3 for r in mine]
+        card = sum(own) / len(own) if own else None
+        ok = len(own) == want and events_ms >= card >= bound_ms
+        if whole_call:
+            split = {"own_us": 0.0, "other_us": 0.0, "kernels": 0}
+            for name in {r[0] for r in records}:
+                us = [r[1] for r in records if r[0] == name]
+                per_call = max(1, round(len(us) / PROFILED_CALLS))
+                split["own_us" if match in name else "other_us"] += (
+                    sum(us) / len(us) * per_call)
+                split["kernels"] += per_call
+            total = (split["own_us"] + split["other_us"]) / 1e3
+            ok = ok and events_ms >= total
+        kind = "host + device" if window == 0 else "device"
+        notes.append(
+            f"window {window + 1} ({kind}): {len(own)} records of {want}"
+            + (f", {min(own):.4f}-{max(own):.4f} ms each, mean {card:.4f}, "
+               f"the first {min(r[2] for r in mine) - first_call:+.3f} ms "
+               f"from the first call, the last ending "
+               f"{synced - max(r[3] for r in mine):+.3f} ms before the "
+               f"synchronise returned" if own else "")
+            + (f", the call {total:.4f}" if whole_call else "")
+            + f": {'taken' if ok else 'rejected'}")
+        if ok:
             break
-    return events
-
-
-def device_ms(fn, match: str, required: bool = True):
-    """The kernel's own milliseconds on the card per launch by ``fn()``:
-    the mean device time of the kernels whose name holds ``match`` (the
-    profiler may drop a record, so over the launches it kept).  Where the
-    profiler kept none in ``PROFILE_WINDOWS`` windows: a failure, or None
-    when not ``required``."""
-    events = [e for e in profiled_kernels(fn, match) if match in e.key]
-    if not (events or required):
+    READINGS["taken" if ok else "rejected"] += 1
+    if not ok:
+        notes.append(
+            f"no reading (events {events_ms:.4f} ms, card "
+            + (f"{card:.4f} ms" if own else "none")
+            + f", bound {bound_ms:.4f} ms, {len(own)} records of {want})")
+    print(f"[{tag} card {match}] events {events_ms:.4f} ms >= card >= bound "
+          f"{bound_ms:.4f} ms, {want} records: " + "; ".join(notes),
+          flush=True)
+    if not ok:
         return None
-    check(events, f"the profiler saw no device time of a {match} kernel "
-          f"in {PROFILE_WINDOWS} windows")
-    return (sum(e.device_time_total for e in events)
-            / sum(e.count for e in events) / 1e3)
+    return split if whole_call else card
 
 
-def create_rays_split(fn, match: str) -> dict:
-    """Where one ``create_rays`` call's time on the card goes: the camera
-    kernel (name holds ``match``), everything else, and the launches.  Each
-    kernel name's mean over the records the profiler kept, times its
-    launches per call (its records over the calls, rounded: a dropped
-    record does not lower the sum)."""
-    split = {"own_us": 0.0, "other_us": 0.0, "kernels": 0}
-    events = profiled_kernels(fn, match)
-    check(any(match in e.key for e in events),
-          f"the profiler saw no device time of a {match} kernel in "
-          f"{PROFILE_WINDOWS} windows")
-    for e in events:
-        per_call = max(1, round(e.count / PROFILED_CALLS))
-        us = e.device_time_total / e.count * per_call
-        split["own_us" if match in e.key else "other_us"] += us
-        split["kernels"] += per_call
-    return split
+def kernel_count(fn, tag: str):
+    """Kernels on the card per call of ``fn()``, by torch.profiler: a
+    window's records over ``PROFILED_CALLS``.  The count is used only where
+    it is a whole non-zero multiple of ``PROFILED_CALLS`` and two windows
+    in a row agree on it (the first records host and device activity, the
+    repeats the device's alone, up to ``PROFILE_WINDOWS`` windows); else
+    None ("no reading").  Prints each window's count on one line under
+    ``tag``; counts the reading in ``READINGS``."""
+    fn()
+    torch.cuda.synchronize()
+    seen, per_call = [], None
+    for window in range(PROFILE_WINDOWS):
+        n = len(profile_window(fn, host=window == 0)[0])
+        if n > 0 and n % PROFILED_CALLS == 0 and seen and seen[-1] == n:
+            per_call = n // PROFILED_CALLS
+        seen.append(n)
+        if per_call is not None:
+            break
+    READINGS["taken" if per_call is not None else "rejected"] += 1
+    print(f"[{tag} kernels a call] records of {PROFILED_CALLS} calls by "
+          f"window (the first host + device, then device): "
+          f"{', '.join(map(str, seen))}: "
+          + (f"{per_call} a call" if per_call is not None else
+             "no reading (no two windows in a row agree on a whole multiple)"),
+          flush=True)
+    return per_call
 
 
-def split_text(split: dict, match: str) -> str:
+def card_text(ms) -> str:
+    return "no reading" if ms is None else f"{ms:.4f} ms"
+
+
+def split_text(split, match: str) -> str:
+    if split is None:
+        return "create_rays on the card: no reading"
     return (f"create_rays on the card: {match} {split['own_us']:.1f} us, "
             f"other kernels {split['other_us']:.1f} us, {split['kernels']} "
             f"kernels per call (profiler, {PROFILED_CALLS} calls)")
@@ -377,6 +459,13 @@ def bound(bytes_moved: float, ops: float):
     t_ops = ops / F32_ELEMENT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def raytraced_ops(tries, max_tries: int) -> float:
+    """The raytraced kernel's least element-ops on a batch from its tries:
+    ``DRAW_OPS`` per attempt, ``TRACE_OPS`` per ray that succeeds."""
+    return (DRAW_OPS * (tries.numel() + int(tries.sum()))
+            + TRACE_OPS * int((tries <= max_tries).sum()))
 
 
 def nbytes(*tensors) -> int:
@@ -500,8 +589,6 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
                           tags[1], MAX_TRIES_MISMATCH)
     ko, kd, kt, ktir = cmp["out"]
     max_abs_err, mismatch = cmp["max_abs_err"], cmp["mismatches"]
-    dev_ms = device_ms(lambda: trace_kernel.raytraced_fused(*args, **kw),
-                       "raytraced_kernel")
 
     # timings (information only), fresh draws, seed and planes per call
     tg = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -518,17 +605,23 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
             lambda *a: trace_kernel.raytraced_plain(*a[:7], **a[7]), fresh)
     timed["create_rays"] = time_ms(
         lambda *a: zt.create_rays(state, cfg, *a[:4], seed=a[4]), e2e_args)
-    split = create_rays_split(
-        lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed),
-        "raytraced_kernel")
-    print(f"[{tags[2]}] median of 10 (3 warm-up), B = {BATCH}, on {smi}: "
-          + median_line(timed) + f"; kernel on the card {dev_ms:.4f} ms "
-          f"(profiler, {PROFILED_CALLS} launches); two launches bit-equal; "
-          + split_text(split, "raytraced_kernel"), flush=True)
     planes = [t for t in (kw["retry_u1"], kw["retry_u2"]) if t is not None]
+    n_bytes = nbytes(sx, sy, u1, u2, ko, kd, kt, ktir, *planes)
+    rt_bound = bound(n_bytes, raytraced_ops(kt, cfg.max_tries))
+    dev_ms = card_reading(
+        lambda: trace_kernel.raytraced_fused(*args, **kw), "raytraced_kernel",
+        statistics.median(timed["kernel"]), rt_bound[0], tags[2])
+    split = card_reading(
+        lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed),
+        "raytraced_kernel", statistics.median(timed["create_rays"]),
+        rt_bound[0], tags[2], whole_call=True)
+    print(f"[{tags[2]}] median of 10 (3 warm-up), B = {BATCH}, on {smi}: "
+          + median_line(timed) + f"; kernel on the card {card_text(dev_ms)} "
+          f"(profiler, {PROFILED_CALLS} launches; bound {rt_bound[0]:.4f} ms,"
+          f" {rt_bound[1]}); two launches bit-equal; "
+          + split_text(split, "raytraced_kernel"), flush=True)
     return {"launches": n_launch, "bokeh_launches": n_bokeh,
-            "plane_launches": n_planes, "split": split,
-            "bytes": nbytes(sx, sy, u1, u2, ko, kd, kt, ktir, *planes),
+            "plane_launches": n_planes, "split": split, "bytes": n_bytes,
             "max_abs_err": max_abs_err, "mismatches": mismatch,
             "attempts": attempts, "vignetted_frac": vig_frac,
             "kernel_ms": statistics.median(timed["kernel"]),
@@ -630,18 +723,25 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
             lambda *a: zt.create_rays(state, cfg, *a[:4], seed=a[4],
                                       generator=tg), e2e_args),
     }
-    dev_ms = device_ms(lambda: trace_kernel.thinlens_fused(*args, **kw),
-                       "thinlens_kernel")
-    split = create_rays_split(
+    # the pinhole reads no lens samples
+    n_bytes = nbytes(*args[:4 if cfg.use_dof else 2], ko, kd, kt,
+                     *planes.values())
+    thin_bound = bound(n_bytes, THINLENS_OPS_PER_RAY * BATCH)
+    dev_ms = card_reading(
+        lambda: trace_kernel.thinlens_fused(*args, **kw), "thinlens_kernel",
+        statistics.median(timed["kernel"]), thin_bound[0], f"{tag}c")
+    split = card_reading(
         lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed,
-                               generator=g), "thinlens_kernel")
+                               generator=g), "thinlens_kernel",
+        statistics.median(timed["create_rays"]), thin_bound[0], f"{tag}c",
+        whole_call=True)
     print(f"[{tag}c {name} timing] median of 10 (3 warm-up), B = {BATCH}, "
           f"on {smi}: " + median_line(timed) + f"; kernel on the card "
-          f"{dev_ms:.4f} ms (profiler, {PROFILED_CALLS} launches); "
+          f"{card_text(dev_ms)} (profiler, {PROFILED_CALLS} launches; bound "
+          f"{thin_bound[0]:.4f} ms, {thin_bound[1]}); "
           + split_text(split, "thinlens_kernel"), flush=True)
     return {"thinlens_launches": n_thin, "bokeh_launches": n_bokeh,
-            "bytes": nbytes(*args[:4], ko, kd, kt, *planes.values()),
-            "max_abs_err": err,
+            "bytes": n_bytes, "bound": thin_bound, "max_abs_err": err,
             "kernel_ms": statistics.median(timed["kernel"]),
             "device_ms": dev_ms,
             "plain_ms": statistics.median(timed["plain"]),
@@ -703,20 +803,22 @@ def bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, tag):
 
         timed = {"kernel": time_ms(bokeh_kernel.sample_fused, fresh),
                  "plain": time_ms(bokeh_kernel.sample_plain, fresh)}
-        dev_ms = device_ms(lambda: bokeh_kernel.sample_fused(image, u1, u2),
-                           "bokeh_kernel")
+        n_bytes = nbytes(u1, u2, kdx, kdy, bokeh_kernel.packed_tables(image))
+        bk_bound = bound(n_bytes, BOKEH_OPS_PER_DRAW * BATCH)
+        dev_ms = card_reading(
+            lambda: bokeh_kernel.sample_fused(image, u1, u2), "bokeh_kernel",
+            statistics.median(timed["kernel"]), bk_bound[0],
+            f"{tag}{'abc'[i]}")
         rows[label] = {
-            "max_abs_err": err,
-            "bytes": nbytes(u1, u2, kdx, kdy,
-                            bokeh_kernel.packed_tables(image)),
+            "max_abs_err": err, "bytes": n_bytes, "bound": bk_bound,
             "kernel_ms": statistics.median(timed["kernel"]),
             "device_ms": dev_ms,
             "plain_ms": statistics.median(timed["plain"])}
         print(f"[{tag}{'abc'[i]} bokeh timing] {label}: median of 10 (3 "
               f"warm-up), B = {BATCH} draws, on {smi}: "
               + median_line(timed).replace("rays/s", "draws/s")
-              + f"; kernel on the card {dev_ms:.4f} ms (profiler)",
-              flush=True)
+              + f"; kernel on the card {card_text(dev_ms)} (profiler; bound "
+              f"{bk_bound[0]:.4f} ms, {bk_bound[1]})", flush=True)
     return rows
 
 
@@ -752,17 +854,21 @@ def planes_phase(zt, bokeh_kernel, state, sizes, dev, smi, tag):
 
     timed = {"kernel": time_ms(bokeh_kernel.planes_fused, fresh),
              "plain": time_ms(bokeh_kernel.planes_plain, fresh)}
-    dev_ms = device_ms(lambda: bokeh_kernel.planes_fused(image, n, pseed,
-                                                         *salts),
-                       "bokeh_kernel")
+    k = bokeh_kernel.planes_fused(image, n, pseed, *salts)
+    n_bytes = nbytes(*k, bokeh_kernel.packed_tables(image))
+    pl_bound = bound(n_bytes, PLANE_OPS_PER_CELL * n)
+    dev_ms = card_reading(
+        lambda: bokeh_kernel.planes_fused(image, n, pseed, *salts),
+        "bokeh_kernel", statistics.median(timed["kernel"]), pl_bound[0],
+        f"{tag}e")
     print(f"[{tag}e bokeh planes timing] median of 10 (3 warm-up), {n} "
           f"cells, on {smi}: " + "; ".join(
               f"{k} {statistics.median(ts):.4f} ms (min {min(ts):.4f}, max "
               f"{max(ts):.4f})" for k, ts in timed.items())
-          + f"; kernel on the card {dev_ms:.4f} ms (profiler)", flush=True)
-    k = bokeh_kernel.planes_fused(image, n, pseed, *salts)
-    return {"max_abs_err": err, "cells": n,
-            "bytes": nbytes(*k, bokeh_kernel.packed_tables(image)),
+          + f"; kernel on the card {card_text(dev_ms)} (profiler; bound "
+          f"{pl_bound[0]:.4f} ms, {pl_bound[1]})", flush=True)
+    return {"max_abs_err": err, "cells": n, "bytes": n_bytes,
+            "bound": pl_bound,
             "kernel_ms": statistics.median(timed["kernel"]),
             "device_ms": dev_ms,
             "plain_ms": statistics.median(timed["plain"])}
@@ -940,17 +1046,23 @@ def roofline_phase(rk, roofline, profiling, dev, smi, tag):
                       for n, r in rows.items() if n in ("fma", "mul", "add",
                                                         "div"))
           + f"; on {smi}", flush=True)
-    dev_ms = device_ms(lambda: rk.roofline_fused("fma", x, grid, reps),
-                       "roofline_f32")
     # the fma case's bound for the kernel table: its dispatch-bound time, or the
     # block read and the output written at the memory rate if longer
     ops_ms = rows["fma"]["bound_ms"]
     out_bytes = grid * tile * rk.LANES * x.element_size()
     bytes_ms = (nbytes(x) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+
+    def fma():
+        return rk.roofline_fused("fma", x, grid, reps)
+
+    # the rows' times are bursts of back-to-back launches; the reading is
+    # held to single wrapper calls
+    dev_ms = card_reading(fma, "roofline_f32", events_ms(fma), bound_ms,
+                          f"{tag}d")
     return {"rows": rows, "sweep": sweep, "clocks_mhz": clocks,
             "ms": rows["fma"]["ms"], "device_ms": dev_ms,
-            "plain_ms": plain_s * 1e3,
-            "bound_ms": max(ops_ms, bytes_ms),
+            "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
 
@@ -1495,9 +1607,9 @@ def diag_phase(zt, kernels, bokeh_path, dev, smi, tag):
             seconds(lambda: tape.call_tape(cpu_state, host_cfg,
                                            *cpu_args))[1] * 1e3
             for _ in range(5))
-        tape_kernels = sum(e.count for e in profiled_kernels(
+        tape_kernels = kernel_count(
             lambda: tape.call_tape(cam.state, drawn, *samples, rays),
-            "")) / PROFILED_CALLS
+            f"{tag}{'ab'[i]} diag {name} tape")
         out[name] = {"create_rays_ms": off_ms, "draw_create_rays_ms": on_ms,
                      "tape_ms": tape_ms, "cpu_tape_ms": cpu_ms,
                      "tape_kernels": tape_kernels, "segments": len(segs),
@@ -1510,7 +1622,8 @@ def diag_phase(zt, kernels, bokeh_path, dev, smi, tag):
               f"{len(header)} B equal to the CPU's, RAYS read back; PNG "
               f"{png}; on {smi}: create_rays {off_ms:.4f} ms, with draw "
               f"{on_ms:.4f} ms, tape {tape_ms:.4f} ms (CUDA events around "
-              f"host-synchronised calls, median of 5), {tape_kernels:.0f} "
+              f"host-synchronised calls, median of 5), "
+              f"{'no reading' if tape_kernels is None else tape_kernels} "
               f"kernels on the card a tape (profiler); the same tape on the "
               f"host CPU {cpu_ms:.4f} ms (median of 5)", flush=True)
 
@@ -1632,24 +1745,22 @@ def examples_phase(zt, kernels, dev, smi, tag):
             ms = statistics.median(time_ms(
                 lambda *a: trace_kernel.raytraced_fused(*a[:7], **a[7]),
                 fresh))
-            # information only: a window the profiler lost is no failure
-            card_ms = device_ms(
-                lambda: trace_kernel.raytraced_fused(*big[:7], **big[7]),
-                "raytraced_kernel", required=False)
             tries = out[2]
             attempts = 1.0 + int(tries.sum()) / BATCH
             success = int((tries <= cfg.max_tries).sum())
             rt_bound = bound(nbytes(*big[1:5], *out),
-                             DRAW_OPS * attempts * BATCH + TRACE_OPS * success)
+                             raytraced_ops(tries, cfg.max_tries))
+            card_ms = card_reading(
+                lambda: trace_kernel.raytraced_fused(*big[:7], **big[7]),
+                "raytraced_kernel", ms, rt_bound[0], f"{tag}a demo {name}")
             row.update(mismatches=cmp["mismatches"],
                        max_abs_err=cmp["max_abs_err"], kernel_ms=ms,
                        device_ms=card_ms, batch_attempts=attempts,
                        bound_ms=rt_bound[0], bound_by=rt_bound[1])
             print(f"[{tag}a demo {name} kernel at B = {BATCH}] on {smi}: "
                   f"{ms:.4f} ms (CUDA events, median of 10), "
-                  + (f"{card_ms:.4f} ms" if card_ms is not None
-                     else "not measured (no record kept)")
-                  + f" on the card (profiler); attempts/ray {attempts:.4f}, "
+                  f"{card_text(card_ms)} on the card (profiler); attempts/ray "
+                  f"{attempts:.4f}, "
                   f"success {success}; bound {rt_bound[0]:.4f} ms "
                   f"({rt_bound[1]})", flush=True)
         lenses[name] = row
@@ -1689,7 +1800,101 @@ def examples_phase(zt, kernels, dev, smi, tag):
                              "cpu_rel": rel, "steps_s": card_s}}
 
 
-def main() -> None:
+def entry_phase(zt, kernels, dev, smi, tag):
+    """The entry points, ``zoic_tpu_torch.entry``, on the card:
+    ``entry()``'s forward step called twice on its example arguments, its
+    outputs of the right shapes, finite, bit-equal between the two calls
+    and to ``create_rays`` called directly on the same state, samples and
+    seed; then ``dryrun_multichip`` over every visible card, each pass's
+    stats summing to its rays and the kernel pass launching the raytraced
+    kernel once a card.  Then the raytraced kernel against its plain
+    version on the inputs this path gave it (not counted as launches of
+    the path): the entry's 65,536 samples on its state, and each card's
+    shard of the dry run's kernel pass on the dry run's state, each held
+    to the gate's share of mismatched tries (0.01% of its rays, rounded
+    up)."""
+    from zoic_tpu_torch import entry
+    from zoic_tpu_torch.models import raytraced as rt_model
+    from zoic_tpu_torch.parallel import sharding
+
+    trace_kernel, bokeh_kernel, rk = kernels
+    t0 = time.perf_counter()
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    (fn, args), compile_s = seconds(entry.entry)
+    state, sx, sy, lx, ly, seed = args
+    outs = [fn(*args) for _ in range(2)]
+    rays, stats = zt.create_rays(state, entry.config(), sx, sy, lx, ly,
+                                 seed=seed)
+    torch.cuda.synchronize()
+    launched = counts(trace_kernel, bokeh_kernel, rk)
+    n = entry.ENTRY_RAYS
+    shapes = [tuple(o.shape) for o in outs[0]]
+    check(shapes == [(n, 3), (n, 3), (n,), ()], f"entry: shapes {shapes}")
+    check(all(o.device == dev and bool(torch.isfinite(o).all())
+              for o in outs[0]), "entry: outputs not finite on the card")
+    check(bits_equal(outs[0], outs[1]), "entry: two calls of fn differ")
+    check(bits_equal(outs[0], (rays.origin, rays.dir, rays.weight,
+                               stats.vignetted)),
+          "entry: fn differs from create_rays on the same inputs")
+    check(launched["raytraced"] == 3 and sum(launched.values()) == 3,
+          f"entry: launches {launched}, not one raytraced launch a call")
+
+    n_cards = torch.cuda.device_count()
+    n_sub = min(n_cards, entry.KERNEL_PASS_MAX_DEVICES)
+    reset_counts(trace_kernel, bokeh_kernel, rk)
+    dry, dry_s = seconds(lambda: entry.dryrun_multichip(n_cards))
+    dry_launched = counts(trace_kernel, bokeh_kernel, rk)
+    for label, st, rays_n in (
+            ("jnp", dry.eager, entry.RAYS_PER_DEVICE * n_cards),
+            ("kernel", dry.kernel, entry.RAYS_PER_DEVICE * n_sub)):
+        check(int(st.success) + int(st.vignetted) == rays_n,
+              f"dryrun {label}: success + vignetted != {rays_n}")
+    check(dry_launched["raytraced"] == n_sub
+          and sum(dry_launched.values()) == n_sub,
+          f"dryrun: launches {dry_launched}, not one raytraced launch a "
+          f"card of the kernel pass")
+    add_counts(launched, dry_launched)
+
+    cases = [("entry", state, entry.config(), (sx, sy, lx, ly), seed)]
+    cfg = entry.config(entry.DRYRUN_LUT_SAMPLES).replace(**entry.KERNEL_PASS)
+    mesh = entry.mesh(n_sub)
+    shards = sharding.shard_samples(mesh, *entry.samples(
+        entry.RAYS_PER_DEVICE * n_sub, entry.KERNEL_SAMPLE_SEED, dev))
+    for k, st in enumerate(mesh.replicas(dry.state)):
+        cases.append((f"dryrun kernel pass shard {k}", st, cfg,
+                      [a[k] for a in shards],
+                      sharding.shard_seed(entry.DRYRUN_SEED, k)))
+    errs = []
+    for label, st, c, (a, b, u, v), s in cases:
+        u1, u2, kw = rt_model.kernel_inputs(st, c, u, v, s)
+        with torch.cuda.device(a.device):
+            cmp = kernel_vs_plain(
+                trace_kernel, label,
+                (st.lens, a, b, u1, u2, st.sensor_width, s), kw, c.max_tries,
+                f"{tag} entry {label} ({a.numel()} rays, max_tries "
+                f"{c.max_tries}) kernel vs plain",
+                math.ceil(a.numel() * MAX_TRIES_MISMATCH / BATCH))
+        errs.append(cmp["max_abs_err"])
+    phase_s = time.perf_counter() - t0
+    print(f"[{tag} entry] entry(): compile {compile_s:.2f} s; fn on {n} "
+          f"samples twice: shapes {shapes}, finite, bit-equal between the "
+          f"calls and to create_rays on the same state, samples and seed "
+          f"(vignetted {int(stats.vignetted)}); dryrun_multichip("
+          f"{n_cards}) {dry_s:.2f} s: jnp success {int(dry.eager.success)} "
+          f"vignetted {int(dry.eager.vignetted)}, kernel success "
+          f"{int(dry.kernel.success)} vignetted {int(dry.kernel.vignetted)}; "
+          f"launches {launched}; phase {phase_s:.2f} s on {smi}", flush=True)
+    return {"launches": launched, "compile_s": compile_s, "dryrun_s": dry_s,
+            "seconds": phase_s, "max_abs_err": max(errs)}
+
+
+def main(argv=None) -> None:
+    global PRIMER_CYCLES
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--primer-cycles", type=int, default=PRIMER_CYCLES,
+                    help="clocks of the kernel that opens each profiler "
+                         "window; 0 opens them with the calls")
+    PRIMER_CYCLES = ap.parse_args(argv).primer_cycles
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke FAILED: torch.cuda.is_available() is "
                          "False; this smoke test needs a CUDA card")
@@ -1804,13 +2009,16 @@ def main() -> None:
     add_counts(more, examples["launches"])
     examples_s = time.perf_counter() - t_examples
 
+    # ---- the entry points of __graft_entry__.py's counterpart
+    entry_run = entry_phase(zt, kernels, dev, smi, "35")
+    add_counts(more, entry_run["launches"])
+
     from zoic_tpu_torch.bench import USEFUL_OPS_PER_RAY
 
     rep = thin["thinlens_f1.4"]
     rt_bound = bound(head["bytes"], USEFUL_OPS_PER_RAY * BATCH)
-    thin_bound = bound(rep["bytes"], THINLENS_OPS_PER_RAY * BATCH)
-    bokeh_bound = bound(bk["bytes"], BOKEH_OPS_PER_DRAW * BATCH)
-    planes_bound = bound(bpl["bytes"], PLANE_OPS_PER_CELL * bpl["cells"])
+    thin_bound, bokeh_bound, planes_bound = (
+        rep["bound"], bk["bound"], bpl["bound"])
     entries = [{
         "name": "raytraced",
         "route": "cuda",
@@ -1821,7 +2029,8 @@ def main() -> None:
         "max_abs_err": max([r["max_abs_err"] for r in rt.values()]
                            + [r["max_abs_err"]
                               for r in examples["lenses"].values()
-                              if "max_abs_err" in r]),
+                              if "max_abs_err" in r]
+                           + [entry_run["max_abs_err"]]),
         "ms": head["kernel_ms"],
         "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"],
@@ -1912,7 +2121,8 @@ def main() -> None:
                                  if "lanes_per_warp_trace" in r},
         "seconds": {"script": time.perf_counter() - t_script,
                     "phases_27_31": surface_s, "phase_33": diag_s,
-                    "phase_34": examples_s},
+                    "phase_34": examples_s, "phase_35": entry_run["seconds"]},
+        "profile_readings": READINGS,
         "surface": {
             "launches": surface_launches,
             "camera_compile_s": surface["camera"]["compile_s"],

@@ -64,12 +64,18 @@ class Mesh:
         return [self._copies[d] for d in self.devices]
 
 
-def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
-    """A mesh over ``devices``, or over every visible CUDA card as
-    ``torch.device("cuda:i")``."""
+def make_mesh(devices: Optional[Sequence] = None,
+              count: Optional[int] = None) -> Mesh:
+    """A mesh over ``devices``, or over the first ``count`` visible CUDA
+    cards (every one by default) as ``torch.device("cuda:i")``; fewer
+    visible cards than ``count`` raise."""
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        have = torch.cuda.device_count()
+        if count is not None and have < count:
+            raise RuntimeError(f"make_mesh: {count} CUDA cards asked for, "
+                               f"{have} visible")
+        devices = [torch.device("cuda", i) for i in range(
+            have if count is None else count)]
         if not devices:
             raise RuntimeError("make_mesh: no CUDA card is visible; pass "
                                "the devices, e.g. ['cpu'] * 4")
