@@ -70,11 +70,15 @@ they draw and trace, on five cameras) gives the main build's tries.
 
     python3 chip_smoke.py [--primer-cycles N]
 
-Phases, one line each: the device; the kernel builds (six ``nvcc`` runs
-in parallel: four sources, the two camera kernels' counting builds); then
-per camera the run through ``create_rays`` checked for launches, finite
-outputs and its run counters, the kernel against its plain PyTorch
-version on the same inputs, and timings with
+Phases, one line each: the device; the kernel builds (seven ``nvcc``
+runs in parallel: five sources, the two camera kernels' counting builds);
+then per camera the run through ``create_rays`` checked for launches (one
+camera kernel and one epilogue), finite outputs and its run counters, the
+kernel against its plain PyTorch version on the same inputs, the
+epilogue kernel (weight, exposure, fake derivatives and the four counters
+in one pass) against its plain version on that kernel's outputs bit for
+bit (also at exposure +-0.5, with tries at ``max_tries + 1``, and on the
+ragged batches), and timings with
 CUDA events and, for the kernel's own time on the card, torch.profiler,
 with the call's device time split per kernel (a profiler reading is used
 only where its window kept one record per call and events >= card >=
@@ -94,7 +98,7 @@ examples (per lens the compile's seconds, the render's time, vignetting,
 the tape's segments and the coverage; the optimisation's losses); the
 entry points (shapes, launches, the dry run's counters).  Then the
 summary line (with the profiler readings taken and rejected), one JSON
-line of the kernel table (five entries: the four sources, the bokeh
+line of the kernel table (six entries: the five sources, the bokeh
 source's plane entry apart), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
 It needs a CUDA card and ``nvcc``, and imports nothing of jax.
@@ -127,7 +131,7 @@ SEED = 20261016
 # agree and are live must agree to 1e-5 absolute
 MAX_TRIES_MISMATCH = 419
 PAYLOAD_ATOL = 1e-5
-KERNELS = ("raytraced", "thinlens", "bokeh", "roofline")
+KERNELS = ("raytraced", "thinlens", "bokeh", "roofline", "epilogue")
 # the builds: every source with --fmad=false, the camera kernels also
 # counting lanes
 COUNT_LANES = ("ZOIC_COUNT_LANES",)
@@ -184,6 +188,10 @@ F32_ELEMENT_OPS_PER_S = 67e12 / 2
 THINLENS_OPS_PER_RAY = 60
 BOKEH_OPS_PER_DRAW = 30
 PLANE_OPS_PER_CELL = BOKEH_OPS_PER_DRAW + 2 * 15
+# the epilogue kernel's element-ops a ray, an upper estimate from its
+# source (compares and selects for the weight, the exposure and six
+# derivative components, four counter adds), far below its byte bound
+EPILOGUE_OPS_PER_RAY = 16
 # the bokeh kernel's images: (label, shape or None for the benchmark's disk
 # file, path expected: tables in shared memory)
 BOKEH_IMAGES = (("64x64 disk", None, True), ("128x128 disk", (128, 128), True),
@@ -363,13 +371,16 @@ def card_reading(fn, match: str, events_ms: float, bound_ms: float,
         card = sum(own) / len(own) if own else None
         ok = len(own) == want and events_ms >= card >= bound_ms
         if whole_call:
-            split = {"own_us": 0.0, "other_us": 0.0, "kernels": 0}
+            split = {"own_us": 0.0, "other_us": 0.0, "kernels": 0,
+                     "other_ops": 0}
             for name in {r[0] for r in records}:
                 us = [r[1] for r in records if r[0] == name]
                 per_call = max(1, round(len(us) / PROFILED_CALLS))
-                split["own_us" if match in name else "other_us"] += (
-                    sum(us) / len(us) * per_call)
+                mean_us = sum(us) / len(us) * per_call
+                is_own = match in name
+                split["own_us" if is_own else "other_us"] += mean_us
                 split["kernels"] += per_call
+                split["other_ops"] += 0 if is_own else per_call
             total = (split["own_us"] + split["other_us"]) / 1e3
             ok = ok and events_ms >= total
         kind = "host + device" if window == 0 else "device"
@@ -434,7 +445,8 @@ def split_text(split, match: str) -> str:
     if split is None:
         return "create_rays on the card: no reading"
     return (f"create_rays on the card: {match} {split['own_us']:.1f} us, "
-            f"other kernels {split['other_us']:.1f} us, {split['kernels']} "
+            f"other operations {split['other_ops']} a call, "
+            f"{split['other_us']:.1f} us, {split['kernels']} "
             f"kernels per call (profiler, {PROFILED_CALLS} calls)")
 
 
@@ -444,6 +456,9 @@ def bits_equal(a, b) -> bool:
 
 
 def reset_counts(trace_kernel, bokeh_kernel, roofline_kernel=None) -> None:
+    from zoic_tpu_torch.ops import epilogue_kernel
+
+    epilogue_kernel.launches = 0
     trace_kernel.launches = 0
     trace_kernel.thinlens_launches = 0
     bokeh_kernel.launches = 0
@@ -510,6 +525,77 @@ def kernel_vs_plain(trace_kernel, name, args, kw, max_tries, tag, limit):
             "max_abs_err": max(err_o, err_d)}
 
 
+def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
+                      max_tries, count_weight, tag, smi=None):
+    """The epilogue kernel against its plain version on one phase's camera
+    kernel outputs, bit for bit (the weight, both derivatives, the four
+    counters): at the state's exposure, at +0.5 and -0.5, and with every
+    7th ray's tries at ``max_tries + 1``; two launches must give the same
+    bits.  With ``smi`` also its time by CUDA events and on the card
+    (profiler) beside the plain version's and its byte bound.  Prints one
+    line under ``tag``; returns the largest difference (0 when bit-equal)
+    and, with ``smi``, the times."""
+    from zoic_tpu_torch.ops import epilogue_kernel as ek
+
+    dev = tries.device
+    over = tries.clone()
+    over[::7] = max_tries + 1
+    cases = [("the state's exposure", tries, exposure)]
+    cases += [(f"exposure {e:+}", tries,
+               torch.tensor(e, dtype=torch.float32, device=dev))
+              for e in (0.5, -0.5)]
+    cases.append(("tries max_tries + 1 on every 7th ray", over, exposure))
+    kw = dict(count_weight=count_weight)
+    worst, stats, outs = 0.0, {}, []
+    for label, t, ex in cases:
+        args = (t, tir, origin, direction, ex, max_tries)
+        k = ek.epilogue_fused(*args, **kw)
+        p = ek.epilogue_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if t.numel():
+            worst = max([worst] + [float((a - b).abs().max())
+                                   for a, b in zip(k[:3], p[:3])])
+        stats[label] = k[3].tolist()
+        check(bits_equal(k, p), f"{name}: the epilogue kernel and its plain "
+              f"version differ ({label}): stats {k[3].tolist()} vs "
+              f"{p[3].tolist()}")
+        outs.append(k)
+    first = outs[0]
+    again = ek.epilogue_fused(tries, tir, origin, direction, exposure,
+                              max_tries, **kw)
+    check(bits_equal(again, first),
+          f"{name}: two epilogue launches on the same inputs differ")
+    out = {"max_abs_err": worst}
+    line = (f"[{tag}] B = {tries.numel()}: weight, dOdy, dDdy and the "
+            f"counters bit-equal to the plain version in {len(cases)} cases "
+            f"(stats {stats}); two launches bit-equal")
+    if smi is not None:
+        args = (tries, tir, origin, direction, exposure, max_tries)
+
+        def fused():
+            return ek.epilogue_fused(*args, **kw)
+
+        timed = {"kernel": time_ms(fused, lambda: ()),
+                 "plain": time_ms(lambda: ek.epilogue_plain(*args, **kw),
+                                  lambda: ())}
+        n_bytes = (nbytes(tries, origin, direction, exposure, *first)
+                   + (nbytes(tir) if tir is not None else 0))
+        ep_bound = bound(n_bytes, EPILOGUE_OPS_PER_RAY * tries.numel())
+        kernel_ms = statistics.median(timed["kernel"])
+        dev_ms = card_reading(fused, "epilogue_kernel", kernel_ms,
+                              ep_bound[0], tag)
+        out.update(kernel_ms=kernel_ms, device_ms=dev_ms,
+                   plain_ms=statistics.median(timed["plain"]),
+                   bytes=n_bytes, bound=ep_bound)
+        line += (f"; median of 10 (3 warm-up), on {smi}: "
+                 + median_line(timed) + f"; kernel on the card "
+                 f"{card_text(dev_ms)} (profiler, {PROFILED_CALLS} launches; "
+                 f"bound {ep_bound[0]:.4f} ms, {ep_bound[1]}, "
+                 f"{n_bytes / tries.numel():.0f} B/ray)")
+    print(line, flush=True)
+    return out
+
+
 def fresh_inputs(state, cfg, tg: torch.Generator, dev):
     """A maker of the raytraced kernel's arguments at ``BATCH``: fresh
     draws, retry seed and planes per call, from the generator ``tg``."""
@@ -527,11 +613,13 @@ def fresh_inputs(state, cfg, tg: torch.Generator, dev):
 def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
                     smi, tags, time_plain=True, headline=False):
     """Drive one raytraced camera through create_rays, check the run, hold
-    the kernel against its plain version on the same inputs, seed and
-    retry planes, and time kernel, create_rays and, with ``time_plain``,
-    the plain version.  ``tags`` label the three lines; the headline
-    camera is also held to its attempts/ray and vignetted fraction."""
+    the kernel and the epilogue kernel against their plain versions on the
+    same inputs, seed and retry planes, and time kernel, create_rays and,
+    with ``time_plain``, the plain version.  ``tags`` label the three
+    lines; the headline camera is also held to its attempts/ray and
+    vignetted fraction, and its epilogue timed."""
     from zoic_tpu_torch.models import raytraced as rt_model
+    from zoic_tpu_torch.ops import epilogue_kernel as ek
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     sx, sy, lx, ly = draws(g, BATCH, dev)
@@ -547,8 +635,9 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     finally:
         trace_kernel.hash_uniform = eager_hash
     n_launch, n_bokeh = trace_kernel.launches, bokeh_kernel.launches
-    n_planes = bokeh_kernel.plane_launches
+    n_planes, n_epilogue = bokeh_kernel.plane_launches, ek.launches
     check(n_launch > 0, f"{name}: no raytraced kernel launch")
+    check(n_epilogue == 1, f"{name}: {n_epilogue} epilogue launches")
     check(trace_kernel.thinlens_launches == 0,
           f"{name}: a thinlens kernel launched")
     check(n_bokeh == int(cfg.use_image),
@@ -576,7 +665,7 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     norm_err = float((rays.dir[live].norm(dim=1) - 1.0).abs().max())
     check(norm_err < 1e-4, f"{name}: live directions not unit: {norm_err}")
     print(f"[{tags[0]}] launches raytraced {n_launch} bokeh {n_bokeh} "
-          f"planes {n_planes}, eager hashes 0; "
+          f"planes {n_planes} epilogue {n_epilogue}, eager hashes 0; "
           f"success {success} vignetted {vig} tir {int(stats.tir)}; "
           f"attempts/ray {attempts:.6f}; vignetted frac {vig_frac:.6f}; "
           f"max ||dir|-1| {norm_err:.2e}", flush=True)
@@ -589,6 +678,10 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
                           tags[1], MAX_TRIES_MISMATCH)
     ko, kd, kt, ktir = cmp["out"]
     max_abs_err, mismatch = cmp["max_abs_err"], cmp["mismatches"]
+    epi = epilogue_vs_plain(
+        name, kt, ktir, ko, kd, state.exposure_control, cfg.max_tries, True,
+        tags[1].replace("kernel vs plain", "epilogue vs plain"),
+        smi if headline else None)
 
     # timings (information only), fresh draws, seed and planes per call
     tg = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -621,7 +714,8 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
           f" {rt_bound[1]}); two launches bit-equal; "
           + split_text(split, "raytraced_kernel"), flush=True)
     return {"launches": n_launch, "bokeh_launches": n_bokeh,
-            "plane_launches": n_planes, "split": split, "bytes": n_bytes,
+            "plane_launches": n_planes, "epilogue_launches": n_epilogue,
+            "epilogue": epi, "split": split, "bytes": n_bytes,
             "max_abs_err": max_abs_err, "mismatches": mismatch,
             "attempts": attempts, "vignetted_frac": vig_frac,
             "kernel_ms": statistics.median(timed["kernel"]),
@@ -634,9 +728,11 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
 def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
                    tag):
     """Drive one thin-lens config through compile_camera + create_rays,
-    check the run, hold the kernel against its plain version on the same
-    inputs, and time kernel, plain and create_rays."""
+    check the run, hold the kernel and the epilogue kernel against their
+    plain versions on the same inputs, and time kernel, plain and
+    create_rays (and the epilogue on thinlens_f1.4)."""
     from zoic_tpu_torch.models import thinlens as thin_model
+    from zoic_tpu_torch.ops import epilogue_kernel as ek
 
     state = zt.compile_camera(cfg, dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -646,7 +742,9 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     rays, stats = zt.create_rays(state, cfg, sx, sy, lx, ly, generator=g)
     torch.cuda.synchronize()
     n_thin, n_bokeh = trace_kernel.thinlens_launches, bokeh_kernel.launches
+    n_epilogue = ek.launches
     check(n_thin > 0, f"{name}: no thinlens kernel launch")
+    check(n_epilogue == 1, f"{name}: {n_epilogue} epilogue launches")
     check(trace_kernel.launches == 0, f"{name}: a raytraced kernel launched")
     check((n_bokeh > 0) == cfg.use_image,
           f"{name}: {n_bokeh} bokeh launches with use_image={cfg.use_image}")
@@ -667,7 +765,8 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     live = rays.weight > 0
     norm_err = float((rays.dir[live].norm(dim=1) - 1.0).abs().max())
     check(norm_err < 1e-4, f"{name}: live directions not unit: {norm_err}")
-    print(f"[{tag}a {name}] launches thinlens {n_thin} bokeh {n_bokeh}; "
+    print(f"[{tag}a {name}] launches thinlens {n_thin} bokeh {n_bokeh} "
+          f"epilogue {n_epilogue}; "
           f"success {success} vignetted {vig}; attempts/ray {attempts:.6f};"
           f" max ||dir|-1| {norm_err:.2e}", flush=True)
 
@@ -699,6 +798,10 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     check(mismatch <= MAX_TRIES_MISMATCH, f"{name}: kernel and plain "
           "disagree on tries")
     check(err <= PAYLOAD_ATOL, f"{name}: kernel and plain payloads disagree")
+    epi = epilogue_vs_plain(
+        name, kt, None, ko, kd, state.exposure_control, cfg.max_tries,
+        cfg.use_dof, f"{tag}b {name} epilogue vs plain",
+        smi if name == "thinlens_f1.4" else None)
 
     # timings (information only), fresh draws and seed per call
     tg = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -741,6 +844,8 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
           f"{thin_bound[0]:.4f} ms, {thin_bound[1]}); "
           + split_text(split, "thinlens_kernel"), flush=True)
     return {"thinlens_launches": n_thin, "bokeh_launches": n_bokeh,
+            "epilogue_launches": n_epilogue, "epilogue": epi,
+            "split": split,
             "bytes": n_bytes, "bound": thin_bound, "max_abs_err": err,
             "kernel_ms": statistics.median(timed["kernel"]),
             "device_ms": dev_ms,
@@ -878,12 +983,13 @@ def ragged_phase(zt, trace_kernel, name, state, cfg, sizes, dev, tag):
     """The raytraced kernel against its plain version at batches that do not
     fill a warp, a block or the persistent grid: tries and tir equal,
     payloads of live rays within the tolerance, on inputs, seed and (with
-    image bokeh) retry planes made for each size."""
+    image bokeh) retry planes made for each size; and the epilogue kernel
+    against its plain version on those outputs, bit for bit."""
     from zoic_tpu_torch.models import raytraced as rt_model
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     seed = (SEED + 4) % (1 << 22)
-    worst = 0.0
+    worst = epi_err = 0.0
     for n in sizes:
         sx, sy, lx, ly = draws(g, n, dev)
         u1, u2, kw = rt_model.kernel_inputs(state, cfg, lx, ly, seed)
@@ -901,9 +1007,14 @@ def ragged_phase(zt, trace_kernel, name, state, cfg, sizes, dev, tag):
                         float((kd - pd)[live].abs().max()))
         check(worst <= PAYLOAD_ATOL,
               f"{name}: kernel and plain payloads disagree at B = {n}")
+        epi_err = max(epi_err, epilogue_vs_plain(
+            name, kt, ktir, ko, kd, state.exposure_control, cfg.max_tries,
+            True, f"{tag} {name} epilogue vs plain")["max_abs_err"])
     print(f"[{tag} {name} ragged batches] B = {', '.join(map(str, sizes))}: "
           f"tries/tir equal to the plain version's, live max |d| "
-          f"{worst:.3e} (limit {PAYLOAD_ATOL})", flush=True)
+          f"{worst:.3e} (limit {PAYLOAD_ATOL}); the epilogue bit-equal",
+          flush=True)
+    return epi_err
 
 
 def lane_use_phase(dev, smi, tag):
@@ -1103,11 +1214,20 @@ def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
 
 
 def counts(trace_kernel, bokeh_kernel, rk) -> dict:
+    from zoic_tpu_torch.ops import epilogue_kernel
+
     return {"raytraced": trace_kernel.launches,
             "thinlens": trace_kernel.thinlens_launches,
             "bokeh": bokeh_kernel.launches,
             "bokeh_planes": bokeh_kernel.plane_launches,
-            "roofline": rk.launches}
+            "roofline": rk.launches,
+            "epilogue": epilogue_kernel.launches}
+
+
+def only(launched: dict, **want) -> bool:
+    """Whether ``launched`` holds ``want``'s counts and 0 for every other
+    kernel."""
+    return all(v == want.get(k, 0) for k, v in launched.items())
 
 
 def add_counts(total: dict, more: dict) -> None:
@@ -1697,8 +1817,9 @@ def examples_phase(zt, kernels, dev, smi, tag):
         torch.cuda.synchronize()
         n = counts(trace_kernel, bokeh_kernel, rk)
         add_counts(launched, n)
-        check(n["raytraced"] == 1 and sum(n.values()) == 1,
-              f"demo {name}: launches {n}, not one raytraced launch")
+        check(only(n, raytraced=1, epilogue=1),
+              f"demo {name}: launches {n}, not one raytraced launch and "
+              f"one epilogue")
         check_rays(f"demo {name}", res.rays, res.stats, spec.n_samples)
         check(res.image.shape == (spec.height, spec.width)
               and bool(torch.isfinite(res.image).all()),
@@ -1771,7 +1892,7 @@ def examples_phase(zt, kernels, dev, smi, tag):
     u = lo.uniforms(dev)
     card, card_s = seconds(lambda: lo.run(dev, lens=lens, u=u))
     n = counts(trace_kernel, bokeh_kernel, rk)
-    check(sum(n.values()) == 0, f"the lens optimisation launched {n}")
+    check(only(n), f"the lens optimisation launched {n}")
     cpu = lo.run("cpu", steps=EXAMPLE_LOSSES, lens=lens.to("cpu"),
                  u=u.cpu())
     rel = max(abs(a - b) / abs(b) for a, b in
@@ -1836,8 +1957,9 @@ def entry_phase(zt, kernels, dev, smi, tag):
     check(bits_equal(outs[0], (rays.origin, rays.dir, rays.weight,
                                stats.vignetted)),
           "entry: fn differs from create_rays on the same inputs")
-    check(launched["raytraced"] == 3 and sum(launched.values()) == 3,
-          f"entry: launches {launched}, not one raytraced launch a call")
+    check(only(launched, raytraced=3, epilogue=3),
+          f"entry: launches {launched}, not one raytraced launch and one "
+          f"epilogue a call")
 
     n_cards = torch.cuda.device_count()
     n_sub = min(n_cards, entry.KERNEL_PASS_MAX_DEVICES)
@@ -1849,10 +1971,9 @@ def entry_phase(zt, kernels, dev, smi, tag):
             ("kernel", dry.kernel, entry.RAYS_PER_DEVICE * n_sub)):
         check(int(st.success) + int(st.vignetted) == rays_n,
               f"dryrun {label}: success + vignetted != {rays_n}")
-    check(dry_launched["raytraced"] == n_sub
-          and sum(dry_launched.values()) == n_sub,
-          f"dryrun: launches {dry_launched}, not one raytraced launch a "
-          f"card of the kernel pass")
+    check(only(dry_launched, raytraced=n_sub, epilogue=n_sub),
+          f"dryrun: launches {dry_launched}, not one raytraced launch and "
+          f"one epilogue a card of the kernel pass")
     add_counts(launched, dry_launched)
 
     cases = [("entry", state, entry.config(), (sx, sy, lx, ly), seed)]
@@ -1936,6 +2057,10 @@ def main(argv=None) -> None:
     for i, (name, tcfg) in enumerate(thinlens_configs(zt, bokeh_path).items()):
         thin[name] = thinlens_phase(zt, trace_kernel, bokeh_kernel, name,
                                     tcfg, dev, smi, f"{7 + i}")
+    print("[11s thin-lens summary] " + json.dumps({
+        name: {k: r[k] for k in ("kernel_ms", "device_ms", "plain_ms",
+                                 "create_rays_ms", "split")}
+        for name, r in thin.items()}), flush=True)
     # ---- the bokeh kernel against its plain version on both paths, and
     # its retry-plane entry
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1963,11 +2088,12 @@ def main(argv=None) -> None:
         for name, r in rt.items()}), flush=True)
 
     # ---- what must not depend on the schedule: ragged batches, lane use
-    ragged_phase(zt, trace_kernel, "raytraced_headline", state,
-                 raytraced_config(zt, "headline"), sizes, dev, "23a")
-    ragged_phase(zt, trace_kernel, "raytraced_bokeh_image", bokeh_state,
-                 raytraced_config(zt, "raytraced_bokeh_image", bokeh_path),
-                 sizes, dev, "23b")
+    ragged_err = max(
+        ragged_phase(zt, trace_kernel, "raytraced_headline", state,
+                     raytraced_config(zt, "headline"), sizes, dev, "23a"),
+        ragged_phase(zt, trace_kernel, "raytraced_bokeh_image", bokeh_state,
+                     raytraced_config(zt, "raytraced_bokeh_image",
+                                      bokeh_path), sizes, dev, "23b"))
     lanes = lane_use_phase(dev, smi, "23c")
 
     # ---- the lens compile, the microbenchmark, the bench
@@ -2016,6 +2142,7 @@ def main(argv=None) -> None:
     from zoic_tpu_torch.bench import USEFUL_OPS_PER_RAY
 
     rep = thin["thinlens_f1.4"]
+    epi = head["epilogue"]
     rt_bound = bound(head["bytes"], USEFUL_OPS_PER_RAY * BATCH)
     thin_bound, bokeh_bound, planes_bound = (
         rep["bound"], bk["bound"], bpl["bound"])
@@ -2099,10 +2226,31 @@ def main(argv=None) -> None:
         "bound_by": roof["bound_by"],
         "library_ms": None,
         "config": "fma",
+    }, {
+        "name": "epilogue",
+        "route": "cuda",
+        "source": "zoic_tpu_torch/csrc/epilogue.cu",
+        "replaces": "zoic_tpu/models/common.py:105",
+        "launches": (sum(r["epilogue_launches"] for r in rt.values())
+                     + sum(r["epilogue_launches"] for r in thin.values())
+                     + more["epilogue"]),
+        "max_abs_err": max([r["epilogue"]["max_abs_err"]
+                            for r in (*rt.values(), *thin.values())]
+                           + [ragged_err]),
+        "ms": epi["kernel_ms"],
+        "device_ms": epi["device_ms"],
+        "plain_ms": epi["plain_ms"],
+        "bound_ms": epi["bound"][0],
+        "bound_by": epi["bound"][1],
+        "library_ms": None,
+        "config": "raytraced_headline",
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
           and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,
           "the bokeh configs launched no bokeh kernel or plane entry")
+    check(entries[5]["launches"] == entries[0]["launches"]
+          + entries[1]["launches"], "the epilogue did not launch once for "
+          "each camera kernel launch of the main paths")
 
     print("[32 summary] " + json.dumps({
         "compile_s": {n: r["compile_s"] for n, r in comp.items()},

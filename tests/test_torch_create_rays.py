@@ -4,9 +4,12 @@
 ``zoic_tpu_torch.create_rays`` (plain PyTorch version on the CPU) on the
 same state, samples and seed: the seed is the JAX path's own draw
 ``jax.random.randint(key, (), 0, 1 << 22)`` (``models/raytraced.py``),
-handed to the port as an int.  The whole RayBatch and all four RayStats
-must match: weights and counters exactly, origins, directions and the
-fake derivatives to 1e-5 on rays within the budget and to 1e-3 on all.
+handed to the port as an int.  The JAX side runs once, at exposure 0;
+the other exposures take its weight through the JAX package's own
+``apply_exposure`` (nothing else depends on the exposure).  The whole
+RayBatch and all four RayStats must match: weights and counters exactly,
+origins, directions and the fake derivatives to 1e-5 on rays within the
+budget and to 1e-3 on all.
 The configurations the first slice refused (image bokeh, naive shaping,
 no pre-check, the harmonic bound, the select chain) run on their shipped
 states and match as well, image bokeh by distribution.
@@ -22,6 +25,7 @@ import torch
 
 import zoic_tpu as zt
 from zoic_tpu.io import state as jax_state_io
+from zoic_tpu.models import common as jcommon
 
 import zoic_tpu_torch as zpt
 from zoic_tpu_torch.models import common
@@ -58,18 +62,34 @@ def _samples(n, seed=21):
     ]
 
 
-@pytest.mark.parametrize("exposure", [0.0, 0.5, -0.5])
-def test_create_rays_matches_jax(states, exposure):
-    js, st = states
-    js = dataclasses.replace(js, exposure_control=jnp.float32(exposure))
-    st = dataclasses.replace(
-        st, exposure_control=torch.tensor(exposure, dtype=torch.float32))
-    jcfg, tcfg = _cfgs()
+@pytest.fixture(scope="module")
+def jax_reference(states):
+    """``zoic_tpu.create_rays`` on the headline at exposure 0, run once for
+    the module (interpret mode costs most of the file's time): ``(samples,
+    seed, rays, stats)``.  Of its outputs only the weight depends on the
+    exposure, through the JAX package's ``apply_exposure`` at the end."""
+    js, _ = states
+    js = dataclasses.replace(js, exposure_control=jnp.float32(0.0))
+    jcfg, _ = _cfgs()
     s = _samples(N)
     key = jax.random.PRNGKey(42)
     jr, jstats = zt.create_rays(js, jcfg, *(jnp.asarray(a) for a in s),
                                 key)
     seed = int(jax.random.randint(key, (), 0, 1 << 22))
+    return s, seed, jr, jstats
+
+
+@pytest.mark.parametrize("exposure", [0.0, 0.5, -0.5])
+def test_create_rays_matches_jax(states, jax_reference, exposure):
+    _, st = states
+    st = dataclasses.replace(
+        st, exposure_control=torch.tensor(exposure, dtype=torch.float32))
+    _, tcfg = _cfgs()
+    s, seed, jr, jstats = jax_reference
+    # the JAX package's weight at this exposure: its own exposure step on
+    # the exposure-0 reference's weight (which is the unexposed 0 / 1)
+    jweight = np.asarray(jcommon.apply_exposure(jr.weight,
+                                                jnp.float32(exposure)))
     tr, tstats = zpt.create_rays(st, tcfg, *(torch.from_numpy(a) for a in s),
                                  seed=seed)
 
@@ -77,8 +97,8 @@ def test_create_rays_matches_jax(states, exposure):
         got, ref = getattr(tstats, f), getattr(jstats, f)
         assert got.dtype == torch.int32, f
         assert int(got) == int(ref), f
-    np.testing.assert_array_equal(tr.weight.numpy(), np.asarray(jr.weight))
-    live = np.asarray(jr.weight) > 0
+    np.testing.assert_array_equal(tr.weight.numpy(), jweight)
+    live = jweight > 0
     for f in ("origin", "dir", "d_ody", "d_ddy"):
         got, ref = getattr(tr, f).numpy(), np.asarray(getattr(jr, f))
         assert got.shape == ref.shape == (N, 3), f

@@ -16,6 +16,7 @@ import torch
 
 import zoic_tpu_torch as zpt
 from zoic_tpu_torch.ops import bokeh_kernel as bk
+from zoic_tpu_torch.ops import epilogue_kernel as ek
 from zoic_tpu_torch.ops import trace_kernel as tk
 
 SEED = 12345
@@ -84,6 +85,37 @@ def test_raytraced_kernel_matches_plain(cuda_state, n, max_tries):
         st.lens, *args, st.sensor_width, SEED, max_tries=max_tries)
     for a, k in zip(again, (ko, kd, kt, ktir)):
         assert torch.equal(a.view(torch.int32), k.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 77, 16 * 128 + 77, 1_000_003])
+def test_epilogue_kernel_matches_plain(cuda_dev, n, offset):
+    """The epilogue kernel against its plain version bit for bit: weights,
+    both derivatives and the four counters, at exposures of both signs and
+    0, with and without tir, weighted and the pinhole; batches that do not
+    fill a group of four rays, a block or the grid, and inputs off the
+    16-byte alignment (the one-ray path); two launches equal."""
+    rng = np.random.default_rng(n)
+    m = n + offset
+    tries = torch.from_numpy(rng.integers(0, 27, m).astype(np.int32))
+    tir = torch.from_numpy(rng.integers(0, 3, m).astype(np.int32))
+    vecs = torch.from_numpy(rng.normal(size=(2, m, 3)).astype(np.float32))
+    t, r, o, d = (x.to(cuda_dev)[offset:] for x in (tries, tir, *vecs))
+    for e in (-0.5, 0.0, 2.0):
+        ex = torch.tensor(e, dtype=torch.float32, device=cuda_dev)
+        for tir_in, count_weight in ((r, True), (None, True), (None, False)):
+            args = (t, tir_in, o, d, ex, 25)
+            before = ek.launches
+            k = ek.epilogue_fused(*args, count_weight=count_weight)
+            assert ek.launches == before + (n > 0)
+            p = ek.epilogue_plain(*args, count_weight=count_weight)
+            again = ek.epilogue_fused(*args, count_weight=count_weight)
+            torch.cuda.synchronize()
+            for a, b, c in zip(k, p, again):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+                assert torch.equal(a.view(torch.int32), c.view(torch.int32))
 
 
 @pytest.mark.cuda

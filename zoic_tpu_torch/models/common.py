@@ -1,6 +1,10 @@
 """What the camera models share (``zoic_tpu/models/common.py``): the
 eager path's aperture sampler and retry rounds, and the epilogue of both
-paths (weights, exposure, the fake derivatives and the run counters).
+paths (weights, exposure, the fake derivatives and the run counters),
+whose pieces live beside its kernel in :mod:`..ops.epilogue_kernel`: the
+kernel path calls :func:`~..ops.epilogue_kernel.epilogue_fused`, the eager
+path composes :func:`weight_and_stats`, :func:`apply_exposure` and
+:func:`fake_derivatives` itself.
 
 The reference's per-ray ``while (!ok && tries <= maxtries)`` resample loops
 (src/zoic.cpp:1802-1830 thin lens, 1879-1957 raytraced) become whole-batch
@@ -26,7 +30,9 @@ import torch
 
 from .. import bokeh as bokeh_mod
 from .. import sampling
-from ..system import RayBatch
+from ..ops.epilogue_kernel import (  # noqa: F401
+    apply_exposure, fake_derivatives, weight_and_stats)
+from ..system import RayBatch, RayStats
 
 Tensor = torch.Tensor
 
@@ -99,34 +105,7 @@ def resample_rounds(
     return ok, payload, tries, tir_total
 
 
-def weight_and_stats(
-    tries: Tensor, max_tries: int
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns ``(weight f32[B], success i32[], vignetted i32[])``."""
-    vignetted = tries > max_tries
-    weight = torch.where(vignetted, 0.0, 1.0).to(torch.float32)
-    n_vig = vignetted.sum(dtype=torch.int32)
-    n_ok = (~vignetted).sum(dtype=torch.int32)
-    return weight, n_ok, n_vig
-
-
-def apply_exposure(weight: Tensor, exposure_control: Tensor) -> Tensor:
-    """x(1+e^2) for e > 0, x 1/(1+e^2) for e < 0 (zoic.cpp:1980-1987)."""
-    e2 = exposure_control * exposure_control
-    up = weight * (1.0 + e2)
-    down = weight * (1.0 / (1.0 + e2))
-    return torch.where(
-        exposure_control > 0.0, up,
-        torch.where(exposure_control < 0.0, down, weight),
-    )
-
-
-def fake_derivatives(
-    tries: Tensor, origin: Tensor, direction: Tensor
-) -> Tuple[Tensor, Tensor]:
-    """dOdy = origin and dDdy = dir where the ray was retried, else zero
-    (zoic.cpp:1974-1977)."""
-    retried = (tries > 0)[..., None]
-    zeros = torch.zeros_like(origin)
-    return (torch.where(retried, origin, zeros),
-            torch.where(retried, direction, zeros))
+def ray_stats(stats: Tensor) -> RayStats:
+    """The run counters of an epilogue's ``stats`` i32[4] buffer (success,
+    vignetted, tir, tries_total), each a 0-d view of it."""
+    return RayStats(*stats.unbind())

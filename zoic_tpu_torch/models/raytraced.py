@@ -22,7 +22,9 @@ Pallas kernel takes flat blocks).
   reference.  In the LUT retry path the centroid translation moves x only,
   as on the first attempt (the JAX package's reading of zoic.cpp:1933).
 
-The weight, exposure and derivative epilogue stays in PyTorch.
+The weight, exposure, derivative and counter epilogue is one launch of
+:func:`zoic_tpu_torch.ops.epilogue_kernel.epilogue_fused` on the kernel
+path; the eager path composes its plain pieces (``models/common.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from .. import bokeh as bokeh_mod
 from .. import pupil, trace
 from ..config import CameraConfig
-from ..ops import bokeh_kernel, trace_kernel
+from ..ops import bokeh_kernel, epilogue_kernel, trace_kernel
 from ..optics import V3
 from ..system import CameraState, RayBatch, RayStats
 from . import common
@@ -208,11 +210,8 @@ def _create_rays_kernel(
     u1, u2, flags = kernel_inputs(state, config, lensx, lensy, seed)
     origin, direction, tries, tir = trace_kernel.raytraced_fused(
         state.lens, sx, sy, u1, u2, state.sensor_width, seed, **flags)
-    weight, n_ok, n_vig = common.weight_and_stats(tries, config.max_tries)
-    d_ody, d_ddy = common.fake_derivatives(tries, origin, direction)
-    weight = common.apply_exposure(weight, state.exposure_control)
-    stats = RayStats(
-        n_ok, n_vig, tir.sum(dtype=torch.int32),
-        tries.sum(dtype=torch.int32),
-    )
-    return RayBatch(origin, direction, weight, d_ody, d_ddy), stats
+    weight, d_ody, d_ddy, stats = epilogue_kernel.epilogue_fused(
+        tries, tir, origin, direction, state.exposure_control,
+        config.max_tries)
+    return (RayBatch(origin, direction, weight, d_ody, d_ddy),
+            common.ray_stats(stats))

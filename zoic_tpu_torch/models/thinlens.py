@@ -11,7 +11,9 @@ anything else runs one kernel
 (:func:`zoic_tpu_torch.ops.trace_kernel.thinlens_fused`) on the flattened
 batch, with image bokeh after the aperture offsets are drawn by
 :func:`zoic_tpu_torch.bokeh.sample`.
-The weight, exposure and derivative epilogue is ``models/common.py``.
+The weight, exposure, derivative and counter epilogue is one launch of
+:func:`zoic_tpu_torch.ops.epilogue_kernel.epilogue_fused` on the kernel
+path; the eager path composes its plain pieces (``models/common.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from .. import bokeh as bokeh_mod
 from .. import optics
 from ..config import CameraConfig
-from ..ops import trace_kernel
+from ..ops import epilogue_kernel, trace_kernel
 from ..optics import V3
 from ..system import CameraState, RayBatch, RayStats
 from . import common
@@ -194,12 +196,9 @@ def _create_rays_kernel(
         retry_u1=retry_u1,
         retry_u2=retry_u2,
     )
-    zero = torch.zeros((), dtype=torch.int32, device=sx.device)
-    if config.use_dof:
-        weight, n_ok, n_vig = common.weight_and_stats(tries, config.max_tries)
-    else:
-        weight, n_ok, n_vig = torch.ones_like(sx), zero, zero
-    d_ody, d_ddy = common.fake_derivatives(tries, origin, direction)
-    weight = common.apply_exposure(weight, state.exposure_control)
-    stats = RayStats(n_ok, n_vig, zero, tries.sum(dtype=torch.int32))
-    return RayBatch(origin, direction, weight, d_ody, d_ddy), stats
+    # the pinhole keeps weight 1 and counts no successes
+    weight, d_ody, d_ddy, stats = epilogue_kernel.epilogue_fused(
+        tries, None, origin, direction, state.exposure_control,
+        config.max_tries, count_weight=config.use_dof)
+    return (RayBatch(origin, direction, weight, d_ody, d_ddy),
+            common.ray_stats(stats))
