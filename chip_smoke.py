@@ -196,6 +196,10 @@ EPILOGUE_OPS_PER_RAY = 16
 # file, path expected: tables in shared memory)
 BOKEH_IMAGES = (("64x64 disk", None, True), ("128x128 disk", (128, 128), True),
                 ("300x200 random", (300, 200), False))
+# the plane entry's time before its guide tables (PERF.md section 6, the
+# earlier ms of row 3b), quoted beside the time this run measures
+PLANES_EARLIER = ("0.0157 ms on the card, 0.0402 ms by events (PERF.md "
+                  "row 3b; NVIDIA H100 80GB HBM3, 700.00 W)")
 # compile vs shipped state: solve scalars relative, create_rays attempts/ray
 # relative and vignetted fraction absolute
 SOLVE_RTOL = 1e-5
@@ -866,6 +870,18 @@ def edge_draws(image, g, dev):
     return u1, u2
 
 
+def plane_images(zt):
+    """``(label, pixels, tables in shared memory)`` of the plane entry's
+    images besides the bench's: a 128x128 disk, 300x200 random pixels with
+    every seventh row dark, and a 64x64 image dark but for one pixel."""
+    rnd = np.random.default_rng(SEED).random((300, 200, 3), dtype=np.float32)
+    rnd[::7] = 0.0
+    spike = np.zeros((64, 64, 3), np.float32)
+    spike[20, 30] = 1.0
+    return (("128x128 disk", zt.data.bokeh_disk(128), True),
+            ("300x200 random", rnd, False), ("64x64 spike", spike, True))
+
+
 def bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, tag):
     """The bokeh kernel against its plain version on B draws, bit-equal, on
     each image of ``BOKEH_IMAGES`` (both of the kernel's paths), and its
@@ -929,29 +945,51 @@ def bokeh_phase(zt, bokeh_kernel, bokeh_path, dev, smi, tag):
 
 def planes_phase(zt, bokeh_kernel, state, sizes, dev, smi, tag):
     """The retry-plane entry against its plain version (the eager hash and
-    sampler), bit-equal, at the bench's planes and at the cell counts of
-    the ragged batches, then its timings at the bench's planes."""
+    sampler), bit-equal, and two launches bit-equal: at the bench's planes
+    and at the cell counts of the ragged batches, on the bench's image and
+    on those of ``plane_images``; then its timings at the bench's planes
+    (the other images by events alone)."""
     from zoic_tpu_torch.models import raytraced as rt_model
 
     image = state.bokeh
     pseed = SEED % (1 << 22) + rt_model.PLANE_SEED_OFFSET
     salts = (rt_model.SALT_P1, rt_model.SALT_P2)
     n_planes, bp = rt_model.plane_shape(MAX_TRIES, BATCH)
-    cells = [n_planes * bp] + [int(np.prod(rt_model.plane_shape(MAX_TRIES, n)))
-                               for n in sizes]
-    err = 0.0
-    for n in cells:
-        k = bokeh_kernel.planes_fused(image, n, pseed, *salts)
-        p = bokeh_kernel.planes_plain(image, n, pseed, *salts)
-        torch.cuda.synchronize()
-        bits = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
-                   for a, b in zip(k, p))
-        check(bits == 0, f"bokeh planes: {bits} bits differ at {n} cells")
-        err = max(err, *(float((a - b).abs().max()) for a, b in zip(k, p)))
-    print(f"[{tag}d bokeh planes vs plain] {n_planes} x {bp} cells and "
-          f"{', '.join(map(str, cells[1:]))} (ragged batches): bit "
-          f"mismatches 0 (limit 0)", flush=True)
-    n = cells[0]
+    n = n_planes * bp
+    cells = [n] + [int(np.prod(rt_model.plane_shape(MAX_TRIES, b)))
+                   for b in sizes]
+    images = {"the bench's 64x64 disk": (image, True)}
+    for label, pixels, shared in plane_images(zt):
+        images[label] = (zt.bokeh.build(pixels).to(dev), shared)
+    err, timed_more = 0.0, {}
+    for label, (img, shared) in images.items():
+        check(bokeh_kernel._plan(img, n, True, dev)[1] == shared,
+              f"bokeh planes {label}: tables not in "
+              f"{'shared' if shared else 'global'} memory")
+        for c in cells:
+            k = bokeh_kernel.planes_fused(img, c, pseed, *salts)
+            k2 = bokeh_kernel.planes_fused(img, c, pseed, *salts)
+            p = bokeh_kernel.planes_plain(img, c, pseed, *salts)
+            torch.cuda.synchronize()
+            bits = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                       for a, b in zip(k, p))
+            check(bits == 0, f"bokeh planes {label}: {bits} bits differ at "
+                  f"{c} cells")
+            check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(k, k2)),
+                  f"bokeh planes {label}: two launches differ at {c} cells")
+            err = max(err, *(float((a - b).abs().max()) for a, b in zip(k, p)))
+        if img is not image:
+            seeds = iter(range(pseed, pseed + 1000))
+            timed_more[label] = statistics.median(time_ms(
+                bokeh_kernel.planes_fused,
+                lambda img=img: (img, n, next(seeds), *salts)))
+    print(f"[{tag}d bokeh planes vs plain] {', '.join(images)}: {n_planes} x "
+          f"{bp} cells and {', '.join(map(str, cells[1:]))} (ragged "
+          f"batches): bit mismatches 0 (limit 0), two launches bit-equal; "
+          f"kernel at {n} cells (events, median of 10, on {smi}): "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in timed_more.items()),
+          flush=True)
     seeds = iter(range(pseed, pseed + 1000))
 
     def fresh():
@@ -964,14 +1002,15 @@ def planes_phase(zt, bokeh_kernel, state, sizes, dev, smi, tag):
     pl_bound = bound(n_bytes, PLANE_OPS_PER_CELL * n)
     dev_ms = card_reading(
         lambda: bokeh_kernel.planes_fused(image, n, pseed, *salts),
-        "bokeh_kernel", statistics.median(timed["kernel"]), pl_bound[0],
-        f"{tag}e")
+        "bokeh_planes_kernel", statistics.median(timed["kernel"]),
+        pl_bound[0], f"{tag}e")
     print(f"[{tag}e bokeh planes timing] median of 10 (3 warm-up), {n} "
           f"cells, on {smi}: " + "; ".join(
               f"{k} {statistics.median(ts):.4f} ms (min {min(ts):.4f}, max "
               f"{max(ts):.4f})" for k, ts in timed.items())
           + f"; kernel on the card {card_text(dev_ms)} (profiler; bound "
-          f"{pl_bound[0]:.4f} ms, {pl_bound[1]})", flush=True)
+          f"{pl_bound[0]:.4f} ms, {pl_bound[1]}); the search before its "
+          f"guide tables: {PLANES_EARLIER}", flush=True)
     return {"max_abs_err": err, "cells": n, "bytes": n_bytes,
             "bound": pl_bound,
             "kernel_ms": statistics.median(timed["kernel"]),

@@ -14,6 +14,14 @@ CPU.
   each cell, then the sampler) and JAX's plane draws, with a plane seed
   past ``2**22`` and past ``2**31``, and ``planes_fused`` runs it for an
   image on the CPU without a launch;
+* the plane entry's guide tables (``guide_brackets``, ``plane_tables``):
+  brackets computed by hand, consecutive brackets sharing their ends, the
+  host's step count covering the widest bracket and never exceeding the
+  full search's, flat tails collapsed; and its bracketed search written
+  out in PyTorch equal, bit for bit, to ``sample_plain``, to the JAX
+  package's sampler and to ``planes_plain`` on every listed image, at
+  every slice edge ``k / K``, the float just below it, 0.0, 1 - 2**-24
+  and every CDF entry; its shared-memory size rule and grid;
 * the source's block and draws-per-thread constants match the wrapper's.
 
 No Pallas kernel runs here: JAX's side is its jnp sampler and hash.
@@ -52,6 +60,12 @@ def _random(h, w, seed, zero_every=0):
     return img
 
 
+def _spike(n=64):
+    img = np.zeros((n, n, 3), np.float32)
+    img[20, 30] = 1.0
+    return img
+
+
 IMAGES = {
     "disk64": lambda: _disk(64),
     "zero-rows-40x36": lambda: _random(40, 36, 5, zero_every=3),
@@ -59,6 +73,8 @@ IMAGES = {
     "1x64": lambda: _random(1, 64, 2),
     "64x1": lambda: _random(64, 1, 3, zero_every=5),
     "128x128": lambda: _disk(128),
+    "300x200": lambda: _random(300, 200, 7, zero_every=5),
+    "spike64": _spike,
 }
 
 
@@ -204,5 +220,209 @@ def test_source_constants_match_the_wrapper():
     with open(os.path.join(_build.CSRC, "bokeh.cu")) as f:
         src = f.read()
     assert int(re.search(r"kBlock = (\d+);", src).group(1)) == tbk.BLOCK
+    assert (int(re.search(r"kPlaneBlock = (\d+);", src).group(1))
+            == tbk.PLANE_BLOCK)
     assert (int(re.search(r"kDraws = (\d+);", src).group(1))
             == tbk.DRAWS_PER_THREAD)
+
+
+# ---- the plane entry's guide tables and bracketed search
+
+
+def _decode(words, steps):
+    """``(lo, hi)`` of guide words ``lo << steps | (hi - lo)``."""
+    bits = words.view(torch.int32).long() & 0xFFFFFFFF
+    lo = bits >> steps
+    return lo, lo + (bits & ((1 << steps) - 1))
+
+
+def _guides(t, h, w):
+    """The row guide ``(lo, hi)`` ``[kr]`` and the column guides
+    ``[h, kc]`` of :class:`PlaneTables` ``t``."""
+    base, kr, kc = tbk.table_floats(h, w), 1 << t.log2_kr, 1 << t.log2_kc
+    row = _decode(t.words[base:base + kr], t.steps_r)
+    col = _decode(t.words[base + kr:base + kr + h * kc], t.steps_c)
+    return row, tuple(x.view(h, kc) for x in col)
+
+
+def _bracket_search(a, words, off, steps, u):
+    """``csrc/bokeh.cu:bracket_search4`` over flat ``a``: the bracket of
+    guide word ``words`` (offset by ``off``), then ``steps`` steps by
+    ``2**(steps-1), ..., 1``, no probe past its end."""
+    pos, hi = _decode(words, steps)
+    pos, hi = pos + off, hi + off
+    for s in reversed(range(steps)):
+        p = pos + (1 << s)
+        inside = p <= hi
+        probe = a[torch.where(inside, p - 1, 0)]
+        pos = torch.where(inside & (probe <= u), p, pos)
+    return pos
+
+
+def _planes_search(t, h, w, u1, u2):
+    """The plane entry's indexing of :func:`plane_tables`, in PyTorch:
+    slice ``u * K`` of each guide, then the bracketed searches."""
+    ws, base = w + 1, tbk.table_floats(h, w)
+    kr, kc = 1 << t.log2_kr, 1 << t.log2_kc
+    words = t.words
+    g = words[base + (u1 * kr).long()]
+    r = _bracket_search(words, g, torch.zeros_like(g, dtype=torch.int64),
+                        t.steps_r, u1)
+    g = words[base + kr + (r << t.log2_kc) + (u2 * kc).long()]
+    c = _bracket_search(words[2 * h:], g, r * ws, t.steps_c, u2)
+    return words[2 * h + h * ws + c], words[h + r]
+
+
+def _edges(log2_k):
+    """Every slice edge ``k / K`` and the float just below each (above 0)."""
+    k = 1 << log2_k
+    at = (np.arange(k, dtype=np.float64) / k).astype(np.float32)
+    below = np.nextafter(at[1:], np.float32(0))
+    return np.concatenate([at, below, [np.float32(1.0 - 2.0**-24)]])
+
+
+@pytest.mark.parametrize("cdf,n_end,lo,hi", [
+    ([0.25, 0.5, 0.5, 0.75, 1.0], 5, [0, 1, 3, 4], [1, 3, 4, 4]),
+    ([0.25, 0.5, 0.5, 0.75, 1.0], 3, [0, 1, 2, 2], [1, 2, 2, 2]),
+    ([0.1, 0.2, 0.3, 0.4], 4, [0, 2, 3, 3], [2, 3, 3, 3]),
+    ([0.0, 0.0, 1.0, 1.0], 4, [2, 2, 2, 2], [2, 2, 2, 3]),
+])
+def test_guide_brackets_by_hand(cdf, n_end, lo, hi):
+    """Four slices: the clamped upper_bound at 0, 1/4, 1/2, 3/4 and 1."""
+    got = tbk.guide_brackets(torch.tensor([cdf], dtype=torch.float32),
+                             torch.tensor([n_end]), 2)
+    assert got[0].tolist() == [lo] and got[1].tolist() == [hi]
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_guides_bracket_every_answer(name):
+    """Guide word ``k`` brackets the answer of every draw of slice ``k``:
+    consecutive brackets share their ends, the first starts at the answer
+    at 0 and the last ends at the answer at 1, within the CDF (never the
+    zero pad); the host's step count is the bit length of the widest
+    bracket, so it covers it, and it is no more than the full search's
+    ``ceil(log2 n)`` halvings."""
+    image = tbokeh.build(IMAGES[name]())
+    h, w = image.height, image.width
+    t = tbk.plane_tables(image)
+    assert t.words.dtype == torch.float32
+    assert t.words.numel() == tbk.plane_table_floats(h, w)
+    assert (t.log2_kr, t.log2_kc) == tbk.plane_slices(h, w)
+    (rlo, rhi), (clo, chi) = _guides(t, h, w)
+    for lo, hi, n, steps in ((rlo[None], rhi[None], h, t.steps_r),
+                             (clo, chi, w, t.steps_c)):
+        assert torch.equal(lo[:, 1:], hi[:, :-1])
+        assert int(lo.min()) >= 0 and int(hi.max()) <= n - 1
+        width = int((hi - lo).min()), int((hi - lo).max())
+        assert width[0] >= 0 and width[1] < 1 << steps
+        assert steps == width[1].bit_length()
+        assert steps <= (n - 1).bit_length()
+    cdf_row, _, cdf_col_s, _ = tbk.table_views(t.words[:tbk.table_floats(
+        h, w)], h, w)
+    # the answers at 0 and at 1 (the clamp: min(upper_bound, n - 1))
+    assert int(rlo[0]) == min(int((cdf_row <= 0).sum()), h - 1)
+    assert int(rhi[-1]) <= h - 1
+
+
+def test_flat_tails_collapse_to_two_entries():
+    """The disk's rows end in runs of equal CDF entries (its dark pixels):
+    over the image's own column CDFs a bracket spans up to 52 entries, over
+    the plane entry's collapsed ones one.  Its dark rows sort last: the
+    plane tables' row after the first of them selects what the last row
+    selects, its all-zero CDF (every draw past its end, at the clamped
+    ``w - 1``) collapsed in turn to the first two columns."""
+    image = tbokeh.build(_disk(64))
+    h, w = image.height, image.width
+    order = image.row_indices.long()
+    n_full = torch.full((h,), w)
+    lo, hi = tbk.guide_brackets(image.cdf_col[order], n_full,
+                                tbk.plane_slices(h, w)[1])
+    assert int((hi - lo).max()) == 52
+    t = tbk.plane_tables(image)
+    assert (t.steps_r, t.steps_c) == (1, 1)
+    views = tbk.table_views(t.words[:tbk.table_floats(h, w)], h, w)
+    packed = tbk.table_views(tbk.packed_tables(image), h, w)
+    e = int((packed[0] < packed[0][-1]).sum())
+    assert e < h - 2
+    for got, orig in zip(views[1:3], packed[1:3]):  # dy_srow, cdf_col_s
+        assert torch.equal(got[:e + 1], orig[:e + 1])
+        assert torch.equal(got[e + 1], orig[h - 1])
+    assert not views[2][e + 1].any()
+    assert views[3][e + 1, 1] == packed[3][h - 1, w - 1]
+
+
+def _edge_draws(image, t, seed):
+    """Row draws: every ``k / K`` of the row guide, the float below each,
+    0.0, 1 - 2**-24 and every row CDF entry; column draws the same for the
+    column guides and every column CDF entry; both filled to one length
+    with uniforms."""
+    rng = np.random.default_rng(seed)
+    u1 = np.concatenate([_edges(t.log2_kr), image.cdf_row.numpy()])
+    u2 = np.concatenate([_edges(t.log2_kc),
+                         image.cdf_col.numpy().reshape(-1)])
+    n = max(len(u1), len(u2)) + 4099
+    fill = [rng.uniform(0, 1, n - len(u)).astype(np.float32)
+            for u in (u1, u2)]
+    u1, u2 = (np.concatenate([u, f]).astype(np.float32)
+              for u, f in zip((u1, u2), fill))
+    # 1.0 and above stand for no draw: the hash stays below 1
+    u1, u2 = (np.minimum(u, np.float32(1.0 - 2.0**-24)) for u in (u1, u2))
+    return torch.from_numpy(u1), torch.from_numpy(rng.permutation(u2))
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_bracketed_search_equals_sample_plain_and_jax(name):
+    pixels = IMAGES[name]()
+    image = tbokeh.build(pixels)
+    h, w = image.height, image.width
+    t = tbk.plane_tables(image)
+    u1, u2 = _edge_draws(image, t, seed=h * w + 1)
+    dx, dy = _planes_search(t, h, w, u1, u2)
+    dx_p, dy_p = tbk.sample_plain(image, u1, u2)
+    assert torch.equal(dx.view(torch.int32), dx_p.view(torch.int32))
+    assert torch.equal(dy.view(torch.int32), dy_p.view(torch.int32))
+    dx_j, dy_j = jbokeh.sample(jbokeh.build(pixels), jnp.asarray(u1.numpy()),
+                               jnp.asarray(u2.numpy()))
+    np.testing.assert_array_equal(dx.numpy(), np.asarray(dx_j))
+    np.testing.assert_array_equal(dy.numpy(), np.asarray(dy_j))
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_bracketed_search_of_hashed_cells_equals_planes_plain(name):
+    """The plane entry's whole computation on the bench's seed and salts:
+    each cell's hash, its slices, the bracketed searches."""
+    image = tbokeh.build(IMAGES[name]())
+    h, w = image.height, image.width
+    n_cells, pseed = 70_001, 77 + rt_model.PLANE_SEED_OFFSET
+    ids = torch.arange(n_cells, dtype=torch.int64)
+    zero = torch.zeros_like(ids)
+    u1 = tk.hash_uniform(ids, pseed, zero, rt_model.SALT_P1)
+    u2 = tk.hash_uniform(ids, pseed, zero, rt_model.SALT_P2)
+    got = _planes_search(tbk.plane_tables(image), h, w, u1, u2)
+    want = tbk.planes_plain(image, n_cells, pseed, rt_model.SALT_P1,
+                            rt_model.SALT_P2)
+    for g, p in zip(got, want):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w,kr,kc,smem,shared", [
+    (64, 64, 4096, 64, 66_560, True), (128, 128, 4096, 128, 215_040, True),
+    (300, 200, 4096, 256, 808_384, False), (1, 1, 4096, 4, 16_432, True),
+    (1, 64, 4096, 64, 17_168, True), (64, 1, 4096, 4, 18_944, True),
+    (160, 100, 4096, 128, 228_864, True), (164, 100, 4096, 128, 234_176, False),
+    (1024, 8, 8192, 8, 147_456, True),
+])
+def test_plane_table_size_and_shared_memory(h, w, kr, kc, smem, shared):
+    assert tbk.plane_slices(h, w) == (kr.bit_length() - 1,
+                                      kc.bit_length() - 1)
+    assert tbk.smem_bytes(h, w, planes=True) == smem
+    assert tbk.uses_smem(h, w, H100_SMEM_LIMIT, planes=True) is shared
+
+
+@pytest.mark.parametrize("n,blocks_per_sm,grid", [
+    (2_097_152, 1, 132), (4 * 1024 * 132, 1, 132), (4 * 1024, 1, 1),
+    (4 * 1024 + 1, 1, 2), (2_097_152, 2, 264), (1, 1, 1),
+])
+def test_plane_grid(n, blocks_per_sm, grid):
+    assert tbk.persistent_grid(n, 132, blocks_per_sm,
+                               tbk.PLANE_BLOCK) == grid

@@ -442,16 +442,29 @@ def test_bokeh_kernel_both_paths_match_plain(cuda_dev, shape, n):
         assert torch.equal(kdy.view(torch.int32), pdy.view(torch.int32))
 
 
+def _spike_image():
+    """A 64x64 image dark but for one pixel."""
+    pixels = np.zeros((64, 64, 3), np.float32)
+    pixels[20, 30] = 1.0
+    return zpt.bokeh.build(pixels)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 64), (300, 200)])
+@pytest.mark.parametrize("shape", [(64, 64), (128, 128), (300, 200),
+                                   "spike"])
 @pytest.mark.parametrize("n_cells", [4, 124, 132, 8500, 67_468, 2_097_152])
 def test_bokeh_planes_match_plain(cuda_dev, n_cells, shape):
     """The plane entry against the eager hash and sampler, bit for bit, at
     the cell counts of ragged batches and of the bench, with a plane seed
-    past 2**31 (masked to 32 bits as the eager hash masks it)."""
+    past 2**31 (masked to 32 bits as the eager hash masks it): its guide
+    tables in shared memory (the disks, the one-pixel spike) and in global
+    memory (300x200)."""
     from zoic_tpu_torch.models import raytraced as rt_model
 
-    image = _bokeh_image(shape).to(cuda_dev)
+    image = (_spike_image() if shape == "spike"
+             else _bokeh_image(shape)).to(cuda_dev)
+    _, shared, _ = bk._plan(image, n_cells, True, cuda_dev)
+    assert shared == (shape != (300, 200))
     salts = (rt_model.SALT_P1, rt_model.SALT_P2)
     for pseed in (77 + rt_model.PLANE_SEED_OFFSET, (1 << 31) + 12_345):
         before = bk.plane_launches

@@ -194,9 +194,10 @@ def create_rays(
     """Map (screen-UV, lens-UV) samples to rays.
 
     ``sx, sy`` span [-1, 1] and ``lensx, lensy`` [0, 1], all float32 on the
-    state's device.  Flat ``[B]`` samples run the camera kernels unless
-    ``config.impl == "jnp"``; that, or a batch of any other shape, runs the
-    exact eager path (``models/``).  The retry draws are keyed by ``seed``,
+    state's device.  Samples of any batch shape run the camera kernels,
+    flattened and their rays given back in that shape, unless
+    ``config.impl == "jnp"``, which runs the exact eager path
+    (``models/``).  The retry draws are keyed by ``seed``,
     an int in ``[0, 2**22)``, or by one drawn from ``generator``; one of
     the two is required.  Strided inputs (columns of a ``[B, 2]`` sample
     tensor) are copied once here: the kernels read theirs in place.

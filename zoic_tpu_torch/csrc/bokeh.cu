@@ -27,9 +27,9 @@
 // planes_plain).
 //
 // What bounds it: 8 B read and 8 B written a draw (the planes: 8 B written a
-// cell), so bytes.  The searches are log2(h) + log2(w) + 2 dependent table
-// loads a draw; from global memory the 32 lanes of a warp probe 32 rows of
-// the column table, up to 32 cache lines a load.  So:
+// cell), so bytes.  The sampler's searches are log2(h) + log2(w) + 2
+// dependent table loads a draw; from global memory the 32 lanes of a warp
+// probe 32 rows of the column table, up to 32 cache lines a load.  So:
 // * the tables live in dynamic shared memory, loaded once by each block of
 //   a persistent grid (blocks per SM from the occupancy query), so their
 //   reads from L2 scale with the resident blocks, not with the draws;
@@ -38,15 +38,43 @@
 //   would fall in one bank;
 // * a thread takes four draws a step, read and written as float4 where the
 //   pointers allow, and runs their searches interleaved, each a fixed
-//   ceil(log2 n) steps with no branch, so the probes of the four overlap
-//   and no lane waits on another;
+//   ceil(log2 n) steps (the plane entry's: the host's s, below) with no
+//   branch, so the probes of the four overlap and no lane waits on another;
 // * tables that do not fit in a block's shared memory (the host's choice by
 //   size, ops/bokeh_kernel.py:uses_smem) are searched in global memory by a
 //   second instance of the same kernel.  No size is refused.
 //
+// The plane entry cuts its searches short with guide tables.  For K =
+// 2^log2k <= 2^24 equal slices of [0, 1), the slice k = u * K of a uniform
+// u < 1 is exact (a power-of-two scaling).  Guide word k of a CDF holds lo
+// and hi, the answers at u = k / K and at (k + 1) / K; the answer is
+// monotone in u, so for every u of slice k it lies in [lo, hi], and it is
+// lo plus the count of entries of [lo, hi) that are <= u.  The host packs a
+// word as lo << s | (hi - lo), s the bit length of the widest bracket of
+// that table, and passes s: it is also the search's fixed number of steps
+// (by 2^(s-1), ..., 1), the same for every lane.  The guides hold
+// min(upper_bound, n - 1), so the past-the-end clamps (zoic.cpp:435, 461)
+// are folded into them.  A flat CDF tail (rows and pixels of zero
+// luminance sort last) would make one bracket as wide as the tail, since
+// upper_bound jumps across it from its first index e to n: the host copies
+// what index n - 1 selects (a row's tables and dy; a column's dx) to index
+// e + 1 of the plane entry's own copy of the tables and ends that CDF
+// there.  K is 8x the next power of two of h and at least 4,096 for the row
+// guide, the next power of two of w for the column guides.  On the 64x64
+// disk a search is then one step a table, and a cell takes 6 shared loads
+// (two guides, two probes, dx and dy) where the sampler's draw takes 16.
+// Its loads are at random addresses, so bank conflicts, not latency, set
+// its pace: the plane entry runs blocks of 1,024 threads, one an SM when
+// its tables are in shared memory, since every block copies them in
+// (tools/bokeh_bound.py times it at one and at two blocks an SM).
+//
 // Packed tables (floats; the host builds them once per image):
 //   [0, h) cdf_row | [h, 2h) dy_srow | [2h, 2h + h*ws) cdf_col_s |
-//   [2h + h*ws, 2h + 2h*ws) dx_col_s | zeros to a multiple of 4;  ws = w + 1
+//   [2h + h*ws, 2h + 2h*ws) dx_col_s | zeros to t, a multiple of 4;
+//   ws = w + 1.  The plane entry's (ops/bokeh_kernel.py:plane_tables)
+//   continue with guide words: [t, t + kr) the row guide |
+//   [t + kr, t + kr + h*kc) the column guides, kc words a sorted row;
+//   kr = 2^log2_kr, kc = 2^log2_kc, both at least 4
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,6 +84,7 @@
 namespace {
 
 constexpr int kBlock = 512;
+constexpr int kPlaneBlock = 1024;  // the plane entry's threads a block
 constexpr int kDraws = 4;  // draws a thread takes per step of its loop
 // dynamic shared memory a block gets without opting in
 constexpr int kDefaultSmem = 48 * 1024;
@@ -82,24 +111,77 @@ __device__ __forceinline__ void upper_bound4(const float* a,
     pos[k] = base[k] - off[k] + (a[base[k]] <= u[k] ? 1 : 0);
 }
 
-// kShared: tables copied into shared memory, else read in global memory.
-// kHash: u1, u2 drawn from the plane cell's index, else read.  vec: every
-// pointer the instance reads or writes per draw is 16-byte aligned.
-template <bool kShared, bool kHash>
+// For each k, with the bracket [pos[k], hi[k]] of guide word g[k] (offset by
+// off[k]): pos[k] becomes its start plus the count of a[start, hi) that are
+// <= u[k].  `steps` steps by 2^(steps-1), ..., 1; every bracket is below
+// 2^steps wide (the host's choice), so they land on the count.  A probe
+// past hi is not made; no branch.
+__device__ __forceinline__ void bracket_search4(const float* a,
+                                                const uint32_t (&g)[kDraws],
+                                                const int (&off)[kDraws],
+                                                int steps,
+                                                const float (&u)[kDraws],
+                                                int (&pos)[kDraws]) {
+  const uint32_t width = (1u << steps) - 1u;
+  int hi[kDraws];
+#pragma unroll
+  for (int k = 0; k < kDraws; ++k) {
+    pos[k] = off[k] + (int)(g[k] >> steps);
+    hi[k] = pos[k] + (int)(g[k] & width);
+  }
+  for (int s = steps - 1; s >= 0; --s) {
+#pragma unroll
+    for (int k = 0; k < kDraws; ++k) {
+      const int p = pos[k] + (1 << s);
+      pos[k] = p <= hi[k] && a[p - 1] <= u[k] ? p : pos[k];
+    }
+  }
+}
+
+// The tables a block of kThreads searches: copied into its shared memory
+// (kShared), else `tab` itself in global memory.
+template <bool kShared, int kThreads>
+__device__ __forceinline__ const float* stage(const float* tab, int n_tab,
+                                              float4* smem) {
+  if (!kShared) return tab;
+  const float4* src = reinterpret_cast<const float4*>(tab);
+  for (int j = threadIdx.x; j < (n_tab >> 2); j += kThreads)
+    smem[j] = __ldg(src + j);
+  __syncthreads();
+  return reinterpret_cast<const float*>(smem);
+}
+
+// Writes the four draws from i0 on that lie below n: as float4 when `full`.
+__device__ __forceinline__ void store4(float* dx, float* dy, int i0, int n,
+                                       bool full, const float (&ox)[kDraws],
+                                       const float (&oy)[kDraws]) {
+  if (full) {
+    *reinterpret_cast<float4*>(dx + i0) = make_float4(ox[0], ox[1], ox[2],
+                                                      ox[3]);
+    *reinterpret_cast<float4*>(dy + i0) = make_float4(oy[0], oy[1], oy[2],
+                                                      oy[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kDraws; ++k) {
+    if (i0 + k < n) {
+      dx[i0 + k] = ox[k];
+      dy[i0 + k] = oy[k];
+    }
+  }
+}
+
+// The sampler.  kShared: tables copied into shared memory, else read in
+// global memory.  vec: every pointer it reads or writes per draw is 16-byte
+// aligned.
+template <bool kShared>
 __global__ void __launch_bounds__(kBlock)
 bokeh_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
              const float* __restrict__ tab, float* __restrict__ dx,
-             float* __restrict__ dy, int n, int h, int w, int n_tab, bool vec,
-             uint32_t pseed, uint32_t salt1, uint32_t salt2) {
+             float* __restrict__ dy, int n, int h, int w, int n_tab,
+             bool vec) {
   extern __shared__ float4 smem[];
-  const float* t = tab;
-  if (kShared) {
-    const float4* src = reinterpret_cast<const float4*>(tab);
-    for (int j = threadIdx.x; j < (n_tab >> 2); j += kBlock)
-      smem[j] = __ldg(src + j);
-    __syncthreads();
-    t = reinterpret_cast<const float*>(smem);
-  }
+  const float* t = stage<kShared, kBlock>(tab, n_tab, smem);
   const int ws = w + 1;
   const float* cdf_row = t;
   const float* dy_srow = t + h;
@@ -111,13 +193,7 @@ bokeh_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
     const int i0 = q * kDraws;
     const bool full = vec && n - i0 >= kDraws;
     float a[kDraws], b[kDraws];
-    if (kHash) {
-#pragma unroll
-      for (int k = 0; k < kDraws; ++k) {
-        a[k] = zoic::hash_uniform((uint32_t)(i0 + k), pseed, 0u, salt1);
-        b[k] = zoic::hash_uniform((uint32_t)(i0 + k), pseed, 0u, salt2);
-      }
-    } else if (full) {
+    if (full) {
       const float4 x = *reinterpret_cast<const float4*>(u1 + i0);
       const float4 y = *reinterpret_cast<const float4*>(u2 + i0);
       a[0] = x.x, a[1] = x.y, a[2] = x.z, a[3] = x.w;
@@ -144,60 +220,88 @@ bokeh_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
       ox[k] = dx_col[off[k] + c[k]];
       oy[k] = dy_srow[r[k]];
     }
-    if (full) {
-      *reinterpret_cast<float4*>(dx + i0) = make_float4(ox[0], ox[1], ox[2],
-                                                        ox[3]);
-      *reinterpret_cast<float4*>(dy + i0) = make_float4(oy[0], oy[1], oy[2],
-                                                        oy[3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kDraws; ++k) {
-        if (i0 + k < n) {
-          dx[i0 + k] = ox[k];
-          dy[i0 + k] = oy[k];
-        }
-      }
-    }
+    store4(dx, dy, i0, n, full, ox, oy);
   }
 }
 
-using Kernel = void (*)(const float*, const float*, const float*, float*,
-                        float*, int, int, int, int, bool, uint32_t, uint32_t,
-                        uint32_t);
+// The retry planes over the plane entry's tables (guides after the packed
+// tables, layout above): cell i's uniforms hashed from i, then a bracketed
+// search of each CDF with steps_r and steps_c steps.  vec: dx and dy are
+// 16-byte aligned.
+template <bool kShared>
+__global__ void __launch_bounds__(kPlaneBlock)
+bokeh_planes_kernel(const float* __restrict__ tab, float* __restrict__ dx,
+                    float* __restrict__ dy, int n, int h, int w, int n_tab,
+                    int log2_kr, int log2_kc, int steps_r, int steps_c,
+                    bool vec, uint32_t pseed, uint32_t salt1,
+                    uint32_t salt2) {
+  extern __shared__ float4 smem[];
+  const float* t = stage<kShared, kPlaneBlock>(tab, n_tab, smem);
+  const int ws = w + 1;
+  const float* cdf_row = t;
+  const float* dy_srow = t + h;
+  const float* cdf_col = t + 2 * h;
+  const float* dx_col = cdf_col + h * ws;
+  const float* guide_row = t + ((2 * h * (w + 2) + 3) & ~3);  // word bits
+  const float* guide_col = guide_row + (1 << log2_kr);
+  const float kr = (float)(1 << log2_kr), kc = (float)(1 << log2_kc);
+  const int steps = (n >> 2) + ((n & 3) != 0);
+  for (int q = blockIdx.x * kPlaneBlock + threadIdx.x; q < steps;
+       q += gridDim.x * kPlaneBlock) {
+    const int i0 = q * kDraws;
+    float a[kDraws], b[kDraws];
+    uint32_t g[kDraws];
+    int r[kDraws], c[kDraws], off[kDraws];
+#pragma unroll
+    for (int k = 0; k < kDraws; ++k) {
+      a[k] = zoic::hash_uniform((uint32_t)(i0 + k), pseed, 0u, salt1);
+      b[k] = zoic::hash_uniform((uint32_t)(i0 + k), pseed, 0u, salt2);
+      // u * K is exact and below K
+      g[k] = __float_as_uint(guide_row[(int)(a[k] * kr)]);
+      off[k] = 0;
+    }
+    bracket_search4(cdf_row, g, off, steps_r, a, r);
+#pragma unroll
+    for (int k = 0; k < kDraws; ++k) {
+      const int j = (r[k] << log2_kc) + (int)(b[k] * kc);
+      g[k] = __float_as_uint(guide_col[j]);
+      off[k] = r[k] * ws;
+    }
+    bracket_search4(cdf_col, g, off, steps_c, b, c);
+    float ox[kDraws], oy[kDraws];
+#pragma unroll
+    for (int k = 0; k < kDraws; ++k) {
+      ox[k] = dx_col[c[k]];
+      oy[k] = dy_srow[r[k]];
+    }
+    store4(dx, dy, i0, n, vec && n - i0 >= kDraws, ox, oy);
+  }
+}
 
-Kernel instance(bool shared, bool hash) {
-  if (shared) return hash ? bokeh_kernel<true, true> : bokeh_kernel<true, false>;
-  return hash ? bokeh_kernel<false, true> : bokeh_kernel<false, false>;
+const void* instance(bool shared, bool planes) {
+  if (planes)
+    return shared ? (const void*)bokeh_planes_kernel<true>
+                  : (const void*)bokeh_planes_kernel<false>;
+  return shared ? (const void*)bokeh_kernel<true>
+                : (const void*)bokeh_kernel<false>;
 }
 
 // The instance, with its shared-memory limit raised when the tables need
 // more than the default; 0 or a CUDA error code.
-int prepare(Kernel fn, int smem) {
+int prepare(const void* fn, int smem) {
   if (smem <= kDefaultSmem) return 0;
-  return (int)cudaFuncSetAttribute((const void*)fn,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem);
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-int launch(bool shared, bool hash, const float* u1, const float* u2,
-           const float* tab, float* dx, float* dy, int n, int h, int w,
-           int n_tab, uint32_t pseed, uint32_t salt1, uint32_t salt2,
-           int grid, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  if (h < 1 || w < 1 || grid < 1 || (n_tab & 3) != 0 ||
-      (int64_t)n_tab < 2 * (int64_t)h * (w + 2) || !aligned16(tab))
-    return (int)cudaErrorInvalidValue;
-  const Kernel fn = instance(shared, hash);
-  const int smem = shared ? n_tab * (int)sizeof(float) : 0;
-  const int err = prepare(fn, smem);
-  if (err != 0) return err;
-  const bool vec = aligned16(dx) && aligned16(dy) &&
-                   (hash || (aligned16(u1) && aligned16(u2)));
-  fn<<<grid, kBlock, smem, stream>>>(u1, u2, tab, dx, dy, n, h, w, n_tab,
-                                     vec, pseed, salt1, salt2);
-  return (int)cudaGetLastError();
+// The packed tables' checks common to both entries: sizes, 16-byte
+// alignment, at least the `need` floats of their layout.
+bool tables_ok(int h, int w, int n_tab, int64_t need, int grid,
+               const float* tab) {
+  return h >= 1 && w >= 1 && grid >= 1 && (n_tab & 3) == 0 &&
+         (int64_t)n_tab >= need && aligned16(tab);
 }
 
 }  // namespace
@@ -214,15 +318,16 @@ extern "C" int zoic_bokeh_smem_limit() {
   return bytes;
 }
 
-// Blocks of kBlock threads of an instance that one SM holds at a time with
-// `smem` bytes of tables (0 for the global instance), or -1 on a failed
-// query.  The wrapper sizes the persistent grid with it.
+// Blocks of an instance (the plane entry's, of kPlaneBlock threads, when
+// `hash`; else kBlock) that one SM holds at a time with `smem` bytes of
+// tables (0 for the global instance), or -1 on a failed query.  The wrapper
+// sizes the persistent grid with it.
 extern "C" int zoic_bokeh_blocks_per_sm(int shared, int hash, int smem) {
-  const Kernel fn = instance(shared != 0, hash != 0);
+  const void* fn = instance(shared != 0, hash != 0);
   int n = 0;
   if (prepare(fn, smem) != 0 ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kBlock,
-                                                    (size_t)smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fn, hash != 0 ? kPlaneBlock : kBlock, (size_t)smem) !=
           cudaSuccess)
     return -1;
   return n;
@@ -235,19 +340,49 @@ extern "C" int zoic_bokeh_launch(const float* u1, const float* u2,
                                  const float* tab, float* dx, float* dy,
                                  int n, int h, int w, int n_tab, int shared,
                                  int grid, void* stream) {
-  return launch(shared != 0, false, u1, u2, tab, dx, dy, n, h, w, n_tab, 0u,
-                0u, 0u, grid, (cudaStream_t)stream);
+  if (n <= 0) return 0;
+  if (!tables_ok(h, w, n_tab, 2 * (int64_t)h * (w + 2), grid, tab))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = instance(shared != 0, false);
+  const int smem = shared ? n_tab * (int)sizeof(float) : 0;
+  const int err = prepare(fn, smem);
+  if (err != 0) return err;
+  const bool vec = aligned16(dx) && aligned16(dy) && aligned16(u1) &&
+                   aligned16(u2);
+  (shared ? bokeh_kernel<true> : bokeh_kernel<false>)
+      <<<grid, kBlock, smem, (cudaStream_t)stream>>>(u1, u2, tab, dx, dy, n,
+                                                     h, w, n_tab, vec);
+  return (int)cudaGetLastError();
 }
 
 // The retry planes: for cell k in [0, n_cells) the draw of
 // (hash_uniform(k, pseed, 0, salt1), hash_uniform(k, pseed, 0, salt2)),
-// written to dx[k], dy[k].
+// written to dx[k], dy[k].  tab: the plane entry's tables with their guides
+// (2^log2_kr words for the row CDF, 2^log2_kc a sorted row's CDF, brackets
+// below 2^steps_r and 2^steps_c wide).
 extern "C" int zoic_bokeh_planes_launch(const float* tab, float* dx,
                                         float* dy, int n_cells,
                                         uint32_t pseed, uint32_t salt1,
                                         uint32_t salt2, int h, int w,
-                                        int n_tab, int shared, int grid,
-                                        void* stream) {
-  return launch(shared != 0, true, nullptr, nullptr, tab, dx, dy, n_cells, h,
-                w, n_tab, pseed, salt1, salt2, grid, (cudaStream_t)stream);
+                                        int n_tab, int log2_kr, int log2_kc,
+                                        int steps_r, int steps_c, int shared,
+                                        int grid, void* stream) {
+  if (n_cells <= 0) return 0;
+  if (log2_kr < 0 || log2_kr > 24 || log2_kc < 0 || log2_kc > 24 ||
+      steps_r < 0 || steps_r > 31 || steps_c < 0 || steps_c > 31 ||
+      !tables_ok(h, w, n_tab,
+                 (2 * (int64_t)h * (w + 2) + 3) / 4 * 4 +
+                     ((int64_t)1 << log2_kr) + ((int64_t)h << log2_kc),
+                 grid, tab))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = instance(shared != 0, true);
+  const int smem = shared ? n_tab * (int)sizeof(float) : 0;
+  const int err = prepare(fn, smem);
+  if (err != 0) return err;
+  const bool vec = aligned16(dx) && aligned16(dy);
+  (shared ? bokeh_planes_kernel<true> : bokeh_planes_kernel<false>)
+      <<<grid, kPlaneBlock, smem, (cudaStream_t)stream>>>(
+          tab, dx, dy, n_cells, h, w, n_tab, log2_kr, log2_kc, steps_r,
+          steps_c, vec, pseed, salt1, salt2);
+  return (int)cudaGetLastError();
 }

@@ -23,14 +23,17 @@ cell, then the inversion) in one launch of the same source, and runs
 The kernel reads the tables packed by :func:`packed_tables`, the per-row
 ones in sorted-row order with a row stride of ``w + 1``; it copies them
 into a block's shared memory when they fit (:func:`uses_smem`), else
-searches them in global memory.
+searches them in global memory.  The plane entry reads its own copy,
+:func:`plane_tables`: flat CDF tails collapsed, and guide tables after
+them that narrow each search to a bracket of the slice of ``[0, 1)`` its
+hashed uniform falls in.
 """
 
 from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -47,8 +50,10 @@ plane_launches = 0
 # draws per searchsorted call of sample_plain: bounds its [chunk, w] gather
 _PLAIN_CHUNK = 1 << 20
 
-# csrc/bokeh.cu's threads a block (kBlock) and draws a thread a step (kDraws)
+# csrc/bokeh.cu's threads a block (kBlock; the plane entry's kPlaneBlock)
+# and draws a thread a step (kDraws)
 BLOCK = 512
+PLANE_BLOCK = 1024
 DRAWS_PER_THREAD = 4
 
 
@@ -93,18 +98,36 @@ def table_floats(h: int, w: int) -> int:
     return -(-2 * h * (w + 2) // 4) * 4
 
 
-def smem_bytes(h: int, w: int) -> int:
+def plane_slices(h: int, w: int) -> Tuple[int, int]:
+    """``(log2 kr, log2 kc)`` of the plane entry's guides: ``kr`` slices of
+    ``[0, 1)`` for the row CDF, 8x the next power of two of ``h`` and at
+    least 4,096, and ``kc`` for each sorted row's CDF, the next power of
+    two of ``w`` and at least 4; at most ``2**24``, where ``u * K`` stays
+    exact."""
+    return (min(24, max(12, (8 * h - 1).bit_length())),
+            min(24, max(2, (w - 1).bit_length())))
+
+
+def plane_table_floats(h: int, w: int) -> int:
+    """Floats of the plane entry's tables: :func:`table_floats`, then one
+    guide word a slice, ``kr`` for the rows and ``kc`` for each of the
+    ``h`` sorted rows (:func:`plane_slices`)."""
+    log2_kr, log2_kc = plane_slices(h, w)
+    return table_floats(h, w) + (1 << log2_kr) + (h << log2_kc)
+
+
+def smem_bytes(h: int, w: int, planes: bool = False) -> int:
     """Shared memory a block of the kernel takes for an ``h x w`` image
     when the tables go there: 33,792 bytes for 64x64, 133,120 for
-    128x128."""
-    return 4 * table_floats(h, w)
+    128x128; for the plane entry (``planes``) 66,560 and 215,040."""
+    return 4 * (plane_table_floats(h, w) if planes else table_floats(h, w))
 
 
-def uses_smem(h: int, w: int, limit: int) -> bool:
+def uses_smem(h: int, w: int, limit: int, planes: bool = False) -> bool:
     """Whether the kernel searches an ``h x w`` image's tables in shared
     memory: they fit in ``limit`` bytes, the card's opt-in limit a block
     (232,448 on an H100).  Larger images are searched in global memory."""
-    return smem_bytes(h, w) <= limit
+    return smem_bytes(h, w, planes) <= limit
 
 
 def packed_tables(image: BokehImage) -> Tensor:
@@ -146,16 +169,87 @@ def table_views(packed: Tensor, h: int,
             packed[2 * h + h * ws:2 * h * (ws + 1)].view(h, ws))
 
 
-def persistent_grid(n: int, sm_count: int, blocks_per_sm: int) -> int:
-    """Blocks of the kernel's persistent grid for ``n`` draws: as many as
-    the card holds at once, but no more than give each thread one step of
-    four draws, and at least one."""
+class PlaneTables(NamedTuple):
+    """The plane entry's tables (:func:`plane_tables`): ``words``, float32
+    [:func:`plane_table_floats`], and the kernel's arguments for them."""
+
+    words: Tensor
+    log2_kr: int
+    log2_kc: int
+    steps_r: int  # the row search's steps: its widest bracket < 2**steps_r
+    steps_c: int
+
+
+def guide_brackets(cdf: Tensor, n_end: Tensor,
+                   log2_k: int) -> Tuple[Tensor, Tensor]:
+    """``(lo, hi)``, int64 ``[rows, K]``, of ascending ``cdf`` ``[rows, n]``
+    whose row ``i`` ends at ``n_end[i]`` entries: the answer
+    ``min(upper_bound(cdf[i, :n_end[i]], u), n_end[i] - 1)`` at ``u = k /
+    K`` and at ``(k + 1) / K``, by the kernel's f32 compare (``k / K`` is
+    exact in f32 for ``K <= 2**24``).  The answer is monotone in ``u``, so
+    for every ``u`` of slice ``k``, ``[k / K, (k + 1) / K)``, it lies in
+    ``[lo[k], hi[k]]``."""
+    k = 1 << log2_k
+    u = (torch.arange(k + 1, dtype=torch.float64) / k).to(torch.float32)
+    at = torch.minimum(
+        torch.searchsorted(cdf.contiguous(),
+                           u.expand(cdf.shape[0], k + 1).contiguous(),
+                           right=True),
+        (n_end.to(torch.int64) - 1)[:, None])
+    return at[:, :-1], at[:, 1:]
+
+
+def plane_tables(image: BokehImage) -> PlaneTables:
+    """The plane entry's tables of ``image``, on the CPU: its
+    :func:`packed_tables` with each flat CDF tail collapsed, then the guide
+    words (layout in ``csrc/bokeh.cu``).
+
+    A tail of equal entries from index ``e`` on (rows and pixels of zero
+    luminance sort last) leaves two answers: ``e`` for a draw below its
+    value, and ``n - 1`` for one at or above it (``upper_bound`` passes the
+    whole tail and is clamped).  So what ``n - 1`` selects (a sorted row's
+    tables and ``dy``; a column's ``dx``) is copied to ``e + 1`` and the
+    CDF ends there: no bracket spans more than two entries of a tail.  Word
+    ``k`` of a CDF is ``lo << s | (hi - lo)`` of :func:`guide_brackets`,
+    ``s`` the bit length of that table's widest bracket."""
+    h, w = image.height, image.width
+    packed = packed_tables(image).cpu()
+    cdf_row, dy_srow, cdf_col, dx_col = table_views(packed, h, w)
+    last = min(h, int((cdf_row < cdf_row[-1]).sum()) + 2) - 1
+    if last < h - 1:
+        for t in (dy_srow, cdf_col, dx_col):
+            t[last] = t[h - 1]
+    cols = cdf_col[:, :w].contiguous()
+    n_col = torch.clamp_max((cols < cols[:, -1:]).sum(1) + 2, w)
+    dx_col[torch.arange(h), n_col - 1] = dx_col[:, w - 1].clone()
+    log2_kr, log2_kc = plane_slices(h, w)
+    words, steps = [packed.view(torch.int32)], []
+    for cdf, n_end, log2_k in ((cdf_row[None], torch.tensor([last + 1]),
+                                log2_kr), (cols, n_col, log2_kc)):
+        lo, hi = guide_brackets(cdf, n_end, log2_k)
+        s = int((hi - lo).max()).bit_length()
+        word = (lo << s | (hi - lo)).reshape(-1)
+        if int(word.max()) >> 32:
+            raise ValueError(f"bokeh image {h}x{w}: a guide bracket of "
+                             f"{2**s - 1} entries does not pack in 32 bits")
+        words.append(torch.where(word >> 31 != 0, word - (1 << 32),
+                                 word).to(torch.int32))
+        steps.append(s)
+    return PlaneTables(torch.cat(words).view(torch.float32), log2_kr,
+                       log2_kc, *steps)
+
+
+def persistent_grid(n: int, sm_count: int, blocks_per_sm: int,
+                    block: int = BLOCK) -> int:
+    """Blocks of ``block`` threads of the kernel's persistent grid for
+    ``n`` draws: as many as the card holds at once, but no more than give
+    each thread one step of four draws, and at least one."""
     steps = -(-n // DRAWS_PER_THREAD)
-    return max(1, min(sm_count * blocks_per_sm, -(-steps // BLOCK)))
+    return max(1, min(sm_count * blocks_per_sm, -(-steps // block)))
 
 
-# (id(image), device) -> (weakref(image), packed tables on the device):
-# made once per image, not once per call
+# (id(image), device, planes) -> (weakref(image), packed tables or
+# PlaneTables on the device): made once per image, not once per call
 _TABLES: dict = {}
 # device index -> (SMs, opt-in shared memory a block)
 _CARD: dict = {}
@@ -163,21 +257,29 @@ _CARD: dict = {}
 _BLOCKS_PER_SM: dict = {}
 
 
-def _kernel_tables(image: BokehImage, dev) -> Tensor:
-    key = (id(image), str(dev))
+def _kernel_tables(image: BokehImage, dev, planes: bool):
+    key = (id(image), str(dev), planes)
     hit = _TABLES.get(key)
     if hit is not None and hit[0]() is image:
         return hit[1]
-    packed = packed_tables(image).to(dev).contiguous()
+    if planes:
+        t = plane_tables(image)
+        tables = t._replace(words=t.words.to(dev).contiguous())
+    else:
+        tables = packed_tables(image).to(dev).contiguous()
     for k in [k for k, v in _TABLES.items() if v[0]() is None]:
         del _TABLES[k]
-    _TABLES[key] = (weakref.ref(image), packed)
-    return packed
+    _TABLES[key] = (weakref.ref(image), tables)
+    return tables
 
 
 def _plan(image: BokehImage, n: int, hash_: bool, dev):
-    """``(packed tables, shared, grid)`` of a launch over ``n`` draws."""
-    packed = _kernel_tables(image, dev)
+    """``(tables, shared, grid)`` of a launch over ``n`` draws: the packed
+    tables, or with ``hash_`` the plane entry's :class:`PlaneTables`, whose
+    grid takes one block an SM when the tables are in shared memory (every
+    block copies them in)."""
+    tables = _kernel_tables(image, dev, hash_)
+    packed = tables.words if hash_ else tables
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     card = _CARD.get(index)
     if card is None:
@@ -187,7 +289,7 @@ def _plan(image: BokehImage, n: int, hash_: bool, dev):
             raise RuntimeError("bokeh kernel: shared-memory limit query failed")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         card = _CARD[index] = (sms, limit)
-    shared = uses_smem(image.height, image.width, card[1])
+    shared = uses_smem(image.height, image.width, card[1], hash_)
     smem = 4 * packed.numel() if shared else 0
     key = (index, shared, hash_, smem)
     per_sm = _BLOCKS_PER_SM.get(key)
@@ -200,13 +302,16 @@ def _plan(image: BokehImage, n: int, hash_: bool, dev):
             raise RuntimeError(f"bokeh kernel: no block fits an SM with "
                                f"{smem} bytes of tables ({per_sm})")
         _BLOCKS_PER_SM[key] = per_sm
-    return packed, shared, persistent_grid(n, card[0], per_sm)
+    if hash_:
+        return tables, shared, persistent_grid(
+            n, card[0], 1 if shared else per_sm, PLANE_BLOCK)
+    return tables, shared, persistent_grid(n, card[0], per_sm)
 
 
 _SAMPLE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
 _PLANES_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                    + [ctypes.c_uint32] * 3 + [ctypes.c_int] * 5
+                    + [ctypes.c_uint32] * 3 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p])
 
 
@@ -242,7 +347,8 @@ def planes_fused(image: BokehImage, n_cells: int, pseed: int, salt1: int,
     image's device: cell ``k`` is the draw of ``hash_uniform(k, pseed, 0,
     salt1)`` and ``hash_uniform(k, pseed, 0, salt2)``.  An image on the
     card launches ``csrc/bokeh.cu``'s plane entry, which hashes the cell
-    index itself; one on the CPU runs :func:`planes_plain`."""
+    index itself and searches the brackets of :func:`plane_tables`; one on
+    the CPU runs :func:`planes_plain`."""
     global plane_launches
     dev = image.cdf_row.device
     if dev.type == "cpu":
@@ -255,13 +361,14 @@ def planes_fused(image: BokehImage, n_cells: int, pseed: int, salt1: int,
                            ((n_cells,), torch.float32))
     if n_cells == 0:
         return dx, dy
-    packed, shared, grid = _plan(image, n_cells, True, dev)
+    t, shared, grid = _plan(image, n_cells, True, dev)
     m = 0xFFFFFFFF
     _launch.launch(
         _launch.bind("bokeh", "zoic_bokeh_planes_launch", _PLANES_ARGTYPES),
-        "bokeh planes", dev, packed.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        n_cells, pseed & m, salt1 & m, salt2 & m, image.height, image.width,
-        packed.numel(), int(shared), grid,
+        "bokeh planes", dev, t.words.data_ptr(), dx.data_ptr(),
+        dy.data_ptr(), n_cells, pseed & m, salt1 & m, salt2 & m,
+        image.height, image.width, t.words.numel(), t.log2_kr, t.log2_kc,
+        t.steps_r, t.steps_c, int(shared), grid,
     )
     plane_launches += 1
     return dx, dy

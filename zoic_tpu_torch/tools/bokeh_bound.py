@@ -16,7 +16,12 @@ bit-equal to its plain version first):
   ``grid_one_step``: as many blocks as give each thread one step of four
   draws (tables loaded by every block);
 * ``global``: the global-memory instance on the same tables;
-* ``planes``: the retry-plane entry over the bench's 4 x 524,288 cells;
+* ``planes``: the retry-plane entry over the bench's 4 x 524,288 cells
+  (checked bit-equal to its plain version first; its guide tables' steps
+  and blocks per SM in the JSON line); ``planes_grid_<k>_per_sm``: the
+  same with k blocks of 1,024 threads an SM, each copying the tables;
+  ``planes_128x128``, ``planes_300x200``: a 128x128 disk (shared memory)
+  and 300x200 random pixels (global memory), each checked bit-equal;
 * ``copy``: the sampler's bytes as two device copies; ``fill``: the
   planes' bytes as two fills.
 
@@ -32,6 +37,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 import zoic_tpu_torch as zt
@@ -118,15 +124,57 @@ def main(argv=None) -> None:
     n_planes, bp = rt_model.plane_shape(25, b)
     cells = n_planes * bp
     pdx, pdy = (t[:cells] for t in (dx, dy))
-    us["planes"] = device_us(lambda: bokeh_kernel.planes_fused(
-        image, cells, args.seed, rt_model.SALT_P1, rt_model.SALT_P2))
+    salts = (rt_model.SALT_P1, rt_model.SALT_P2)
+    # a copy of this tool also runs in a tree from before the plane entry's
+    # guide tables: it then times the plane entry on the three images alone
+    guides = hasattr(bokeh_kernel, "plane_tables")
+
+    def same_planes(label, img, got):
+        want_p = bokeh_kernel.planes_plain(img, cells, args.seed, *salts)
+        for a, ref in zip(got, want_p):
+            if not torch.equal(a.view(torch.int32), ref.view(torch.int32)):
+                raise SystemExit(f"bokeh_bound: {label} differs from plain")
+
+    rnd = np.random.default_rng(args.seed).random((300, 200, 3),
+                                                  dtype=np.float32)
+    rnd[::7] = 0.0
+    planes = {}
+    for label, img in (("planes", image), ("planes_128x128", zt.bokeh.build(
+            zt.data.bokeh_disk(128)).to(dev)),
+            ("planes_300x200", zt.bokeh.build(rnd).to(dev))):
+        same_planes(label, img, bokeh_kernel.planes_fused(
+            img, cells, args.seed, *salts))
+        us[label] = device_us(lambda img=img: bokeh_kernel.planes_fused(
+            img, cells, args.seed, *salts))
+        if guides:
+            t, shared_p, grid_p = bokeh_kernel._plan(img, cells, True, dev)
+            planes[label] = {
+                "shared": shared_p, "steps": [t.steps_r, t.steps_c],
+                "grid": grid_p, "blocks_per_sm": per_sm(
+                    int(shared_p), 1, 4 * t.words.numel() * shared_p)}
+    if guides:
+        t = bokeh_kernel._plan(image, cells, True, dev)[0]
+        plane_launch = _launch.bind("bokeh", "zoic_bokeh_planes_launch",
+                                    bokeh_kernel._PLANES_ARGTYPES)
+        m = 0xFFFFFFFF
+        for k in range(1, planes["planes"]["blocks_per_sm"] + 1):
+            def fn(k=k):
+                _launch.launch(
+                    plane_launch, "bokeh planes", dev, t.words.data_ptr(),
+                    pdx.data_ptr(), pdy.data_ptr(), cells, args.seed & m,
+                    salts[0] & m, salts[1] & m, h, w, t.words.numel(),
+                    t.log2_kr, t.log2_kc, t.steps_r, t.steps_c, 1, sms * k)
+
+            fn()
+            same_planes(f"planes_grid_{k}_per_sm", image, (pdx, pdy))
+            us[f"planes_grid_{k}_per_sm"] = device_us(fn)
     us["copy"] = device_us(lambda: (dx.copy_(u1), dy.copy_(u2)))
     us["fill"] = device_us(lambda: (pdx.fill_(0.5), pdy.fill_(0.25)))
-    for k in ("planes", "copy", "fill"):
+    for k in [k for k in us if k.startswith("planes")] + ["copy", "fill"]:
         print(f"{k}: {us[k]:.2f} us", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(dev), "smi": smi,
                       "batch": b, "cells": cells, "blocks_per_sm": blocks_smem,
-                      "us": us}))
+                      "planes": planes, "us": us}))
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ device µs per call (a name's records over the calls, its µs summed over
 them and over the calls); then the call's time by CUDA events (median of 10, 3
 warm-up).  The cameras: the headline (its shipped state) and the
 benchmark's thin-lens f/1.4 with and without empirical vignetting
-(``compile_camera``).  It calls only the public entry points, so a copy
+(``compile_camera``), and the headline with image bokeh (its shipped
+state: the sampler and the retry planes' entry before the raytraced
+kernel).  It calls only the public entry points, so a copy
 of it runs in an older tree of the port too, to list the operations
 before a change.
 
@@ -35,16 +37,21 @@ import zoic_tpu_torch as zt
 SEED = 20261016
 PRIMER = "spin_kernel"
 PRIMER_CYCLES = 1000
-CAMERAS = ("headline", "thinlens_f1.4", "thinlens_vignette")
+CAMERAS = ("headline", "thinlens_f1.4", "thinlens_vignette",
+           "raytraced_bokeh_image")
+# the cameras whose state is shipped (zoic_tpu_torch/data)
+SHIPPED = ("headline", "raytraced_bokeh_image")
 
 
 def config(name: str):
     """The camera's config, max_tries 25."""
-    if name == "headline":
-        cam = zt.data.CAMERAS["headline"]
+    if name in SHIPPED:
+        cam = zt.data.CAMERAS[name]
+        # the shipped state holds the bokeh image: the path is not read
+        image = {"bokeh_path": "disk64.npy"} if cam.use_image else {}
         return zt.CameraConfig(lens_model=zt.LensModel.RAYTRACED,
                                lens_data_path=zt.data.lens_path(cam.lens),
-                               max_tries=25, **cam.config_kwargs())
+                               max_tries=25, **cam.config_kwargs(), **image)
     vig = (dict(optical_vignetting_distance=1.0,
                 optical_vignetting_radius=1.0)
            if name == "thinlens_vignette" else {})
@@ -54,8 +61,9 @@ def config(name: str):
 
 
 def state(name: str, cfg, dev):
-    if name == "headline":
-        return zt.load_state(zt.data.state_path(), device=dev)
+    if name in SHIPPED:
+        return zt.load_state(zt.data.state_path(zt.data.CAMERAS[name].file),
+                             device=dev)
     return zt.compile_camera(cfg, dev)
 
 
