@@ -56,9 +56,9 @@ def test_all_only_thinlens(capsys):
 
 def test_bursts_and_spread_on_every_line(capsys):
     """``--bursts 5``: each camera's line gives its spread over 5 bursts and
-    a second line the 5 bursts' device, host and CPU times, the CPU probe,
-    context switches, allocator calls and collector runs; the headline's
-    JSON line has ``spread``, ``(max - min) / median`` of the rates."""
+    a second line the 5 bursts' device and host times, and nothing else;
+    the headline's JSON line has ``spread``, ``(max - min) / median`` of
+    the rates."""
     bench.main(SMALL + ["--bursts", "5", "--no-precheck", "--all", "--only",
                         "thinlens_f1.4,headline"])
     out = capsys.readouterr()
@@ -70,11 +70,12 @@ def test_bursts_and_spread_on_every_line(capsys):
         assert "spread" in line and "over 5 bursts" in line
         detail = next(ln for ln in err
                       if ln.strip().startswith(f"{name} bursts:"))
-        for key in ("device ms", "host ms", "thread cpu ms",
-                    "process cpu ms", "probe ms",
-                    "switches", "allocs"):
-            assert len(detail.split(key)[1].split(";")[0].split("/")) == 5
-        assert len(detail.split("gc runs")[1].split("(")[0].split("/")) == 5
+        columns = detail.split("bursts:")[1].split(";")
+        assert [c.strip().rsplit(" ", 1)[0] for c in columns] == [
+            "device ms", "host ms"]
+        for c in columns:
+            times = c.strip().rsplit(" ", 1)[1].split("/")
+            assert len(times) == 5 and all(float(t) > 0 for t in times)
     assert bench.spread([2.0, 1.0, 4.0]) == pytest.approx(1.5)
     with pytest.raises(SystemExit):
         bench.main(SMALL + ["--bursts", "0"])

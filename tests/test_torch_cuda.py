@@ -612,6 +612,39 @@ def test_profiling_trace_records_the_card(cuda_dev, tmp_path):
     names = [e.key for e in prof.key_averages()
              if getattr(e, "device_time_total", 0) > 0]
     assert any("raytraced" in n for n in names), names
+    # the wrapper's span, on the profiler's clock beside the kernel
+    assert "zoic.raytraced" in {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.cuda
+def test_cache_miss_spans_on_a_miss_only(cuda_dev):
+    """``zoic.tables.build`` and ``zoic.kernel.load`` open when a wrapper
+    builds its tables, binds its library function or asks the occupancy,
+    and not on the next call, which finds all three cached."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zoic_tpu_torch.ops import _launch
+
+    st = zpt.load_state(zpt.data.state_path(), device="cuda")
+    args = _inputs(4_096, seed=9)
+    image = zpt.bokeh.build(_disk()).to(cuda_dev)
+
+    def spans():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tk.raytraced_fused(st.lens, *args, st.sensor_width, SEED,
+                               max_tries=25)
+            bk.sample_fused(image, args[2], args[3])
+            torch.cuda.synchronize()
+        return sorted(e.name for e in prof.events()
+                      if e.name.startswith("zoic."))
+
+    for cache in (tk._TABLES, tk._BLOCKS_PER_SM, bk._TABLES, bk._CARD,
+                  bk._BLOCKS_PER_SM, _launch._BOUND):
+        cache.clear()
+    missed = spans()
+    assert missed.count("zoic.tables.build") == 2, missed
+    assert "zoic.kernel.load" in missed, missed
+    assert spans() == ["zoic.bokeh.sample", "zoic.raytraced"]
 
 
 def _headline_cfg(**kw):

@@ -29,14 +29,11 @@ consumed (``sum(weight) + sum(dir[:, 0])``).  A burst of ``iters`` steps of
 ``inner`` generations is timed between two CUDA events; the rate is the
 median of ``--bursts`` bursts (7) after warm-up, and attempts/ray and the
 vignetted fraction come from the timed loop's own ``RayStats``.  The
-spread is ``(max - min) / median`` of the bursts' rates.  The loop is
-host-bound on the thin-lens cameras (about 30 eager launches a
-generation), so each camera's second stderr line gives per burst what
-shows the host's part: the device time (events), the host time of the
-enqueue, the CPU time of the host thread and of the whole process, a
-fixed pure-Python loop's time just before the burst (the host CPU's
-speed), the thread's involuntary context switches, the caching
-allocator's device calls and the collector's runs.
+spread is ``(max - min) / median`` of the bursts' rates.  Each camera's
+second stderr line gives per burst the device time (events) and the host
+time of the enqueue; where the host paces a camera, the port's spans
+under ``torch.profiler`` (:func:`zoic_tpu_torch.utils.profiling.trace`)
+say which step holds it.
 
 ``peak_tops`` is the card's element-op rate, the highest of the f32
 ``fma``, ``mul`` and ``add`` chains that the op-rate microbenchmark
@@ -50,10 +47,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import gc
 import json
 import os
-import resource
 import statistics
 import sys
 import time
@@ -91,48 +86,6 @@ def screen_samples(n: int, device, raster: bool = True, seed: int = 0):
     g = torch.Generator(device=device).manual_seed(seed + 1)
     v = torch.rand((2, n), generator=g, device=device)
     return v[0] * 2.0 - 1.0, v[1] * 2.0 - 1.0
-
-
-class _GcWatch:
-    """Runs of Python's garbage collector and their host seconds, from
-    ``gc.callbacks`` while registered."""
-
-    def __init__(self):
-        self.runs, self.seconds, self._t0 = 0, 0.0, None
-
-    def __call__(self, phase, info):
-        if phase == "start":
-            self._t0 = time.perf_counter()
-        elif self._t0 is not None:
-            self.runs += 1
-            self.seconds += time.perf_counter() - self._t0
-            self._t0 = None
-
-
-def _thread_usage():
-    """``(CPU seconds of this thread, of the whole process, involuntary
-    context switches of this thread)``."""
-    return (time.thread_time(), time.process_time(),
-            resource.getrusage(resource.RUSAGE_THREAD).ru_nivcsw)
-
-
-def _cpu_probe() -> float:
-    """Host seconds of a fixed pure-Python loop: the host CPU's speed at
-    the moment, apart from PyTorch and CUDA."""
-    t0 = time.perf_counter()
-    acc = 0
-    for i in range(20_000):
-        acc += i * i
-    return time.perf_counter() - t0
-
-
-def _device_allocs(dev) -> int:
-    """The caching allocator's ``cudaMalloc`` and ``cudaFree`` calls so
-    far on ``dev`` (0 on the CPU)."""
-    if dev.type != "cuda":
-        return 0
-    st = torch.cuda.memory_stats(dev)
-    return st.get("num_device_alloc", 0) + st.get("num_device_free", 0)
 
 
 def spread(rates) -> float:
@@ -210,43 +163,27 @@ def bench_config(cfg: zt.CameraConfig, n: int, iters: int, inner: int = 16,
     sync()
     rates, record = [], []
     vig_sum = tries_sum = 0
-    watch = _GcWatch()
-    gc.callbacks.append(watch)
-    try:
-        for rep in range(bursts):
-            outs = []
-            probe = _cpu_probe()
-            allocs = _device_allocs(dev)
-            runs, gc_s = watch.runs, watch.seconds
-            cpu0, proc0, switches0 = _thread_usage()
-            if cuda:
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-            start = time.perf_counter()
-            for i in range(iters):
-                outs.append(step(warmup + rep * iters + i))
-            host = time.perf_counter() - start
-            cpu1, proc1, switches1 = _thread_usage()
-            if cuda:
-                # the sums gathered on the first card wait for every card
-                e1.record()
-                e1.synchronize()
-                dt = e0.elapsed_time(e1) / 1e3
-            else:
-                dt = host
-            rates.append(inner * n * iters / dt)
-            record.append({"device_s": dt, "host_s": host,
-                           "cpu_s": cpu1 - cpu0,
-                           "process_cpu_s": proc1 - proc0, "probe_s": probe,
-                           "switches": switches1 - switches0,
-                           "allocs": _device_allocs(dev) - allocs,
-                           "gc_runs": watch.runs - runs,
-                           "gc_s": watch.seconds - gc_s})
-            vig_sum += sum(int(o[1]) for o in outs)
-            tries_sum += sum(int(o[2]) for o in outs)
-    finally:
-        gc.callbacks.remove(watch)
+    for rep in range(bursts):
+        outs = []
+        if cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        start = time.perf_counter()
+        for i in range(iters):
+            outs.append(step(warmup + rep * iters + i))
+        host = time.perf_counter() - start
+        if cuda:
+            # the sums gathered on the first card wait for every card
+            e1.record()
+            e1.synchronize()
+            dt = e0.elapsed_time(e1) / 1e3
+        else:
+            dt = host
+        rates.append(inner * n * iters / dt)
+        record.append({"device_s": dt, "host_s": host})
+        vig_sum += sum(int(o[1]) for o in outs)
+        tries_sum += sum(int(o[2]) for o in outs)
     total = bursts * iters * inner * n
     return {
         "rays_per_sec": statistics.median(rates),
@@ -259,20 +196,11 @@ def bench_config(cfg: zt.CameraConfig, n: int, iters: int, inner: int = 16,
 
 
 def burst_line(name: str, r: dict) -> str:
-    """One stderr line of ``r``'s bursts: device and host ms, the host
-    thread's and the process's CPU ms, the CPU probe's ms before the
-    burst, involuntary switches, allocator calls, the collector's runs."""
+    """One stderr line of ``r``'s bursts: device and host ms."""
     def ms(key):
         return "/".join(f"{b[key] * 1e3:.2f}" for b in r["bursts"])
-
-    def count(key):
-        return "/".join(str(b[key]) for b in r["bursts"])
     return (f"    {name} bursts: device ms {ms('device_s')}; host ms "
-            f"{ms('host_s')}; thread cpu ms {ms('cpu_s')}; process cpu ms "
-            f"{ms('process_cpu_s')}; probe ms {ms('probe_s')}; switches "
-            f"{count('switches')}; allocs {count('allocs')}; gc runs "
-            f"{count('gc_runs')} "
-            f"({sum(b['gc_s'] for b in r['bursts']) * 1e3:.2f} ms)")
+            f"{ms('host_s')}")
 
 
 def configs(bokeh_path: str) -> dict:

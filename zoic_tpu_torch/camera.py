@@ -31,6 +31,7 @@ from .diag import tape as diag_tape
 from .models import raytraced, thinlens
 from .optics import V3
 from .system import CameraState, LensSystem, RayBatch, RayStats
+from .utils.profiling import span
 
 log = logging.getLogger("zoic")
 
@@ -87,23 +88,30 @@ def _iris_identity(lens: LensSystem, config: CameraConfig, draw) -> bool:
 def _compile_lens(config: CameraConfig, device, draw) -> LensSystem:
     """The RAYTRACED half of ``node_update`` (zoic.cpp:1615-1698): lens load
     and solve, the static kernel flags, the LUT and the pupil pre-check."""
-    rx = lensfile.load(config.lens_data_path)
-    lens, report = solve.solve_lens(rx, config, device)
-    solve.log_report(report)
-    # per-element flags: TIR possible (ior > next ior), negative curvature
-    ior = lens.ior.tolist()
-    flags = tuple(
-        (1 if a > b else 0) | (2 if c < 0.0 else 0)
-        for a, b, c in zip(ior, ior[1:] + [1.0], lens.curvature.tolist())
-    )
-    lens = dataclasses.replace(lens, elem_flags=flags,
-                               iris_identity=_iris_identity(lens, config, draw))
+    with span("zoic.compile.parse"):
+        rx = lensfile.load(config.lens_data_path)
+    with span("zoic.compile.solve"):
+        lens, report = solve.solve_lens(rx, config, device)
+        solve.log_report(report)
+        # per-element flags: TIR possible (ior > next ior), negative
+        # curvature
+        ior = lens.ior.tolist()
+        flags = tuple(
+            (1 if a > b else 0) | (2 if c < 0.0 else 0)
+            for a, b, c in zip(ior, ior[1:] + [1.0], lens.curvature.tolist())
+        )
+    with span("zoic.compile.iris_probe"):
+        identity = _iris_identity(lens, config, draw)
+    lens = dataclasses.replace(lens, elem_flags=flags, iris_identity=identity)
     if config.kolb_sampling_lut:
         n_film, n_samples = config.lut_film_samples, config.lut_bounds_samples
-        lens = dataclasses.replace(lens, lut=pupil.build_lut(
-            lens, n_film, n_samples,
-            uniforms=draw("lut", (2, n_film, n_samples))))
-    if config.pupil_precheck:
+        with span("zoic.compile.lut"):
+            lut = pupil.build_lut(lens, n_film, n_samples,
+                                  uniforms=draw("lut", (2, n_film, n_samples)))
+        lens = dataclasses.replace(lens, lut=lut)
+    if not config.pupil_precheck:
+        return lens
+    with span("zoic.compile.precheck"):
         # image-bokeh offsets fill [-1, 1]^2 (bokehSample, zoic.cpp:441-485):
         # the bound is then fitted and validated over the square
         domain = "square" if config.use_image else "disk"
@@ -117,12 +125,11 @@ def _compile_lens(config: CameraConfig, device, draw) -> LensSystem:
             lens, n, domain=domain, r_max=r_max, uniforms=covers)
         # dead-film fraction, quantized to one decimal as in the JAX package
         dead = pupil.dead_film_fraction(profile.keys, key_acc, r_max)
-        lens = dataclasses.replace(
-            lens, profile=profile, dead_frac=round(dead, 1),
-            profile_domain=domain,
-            profile_poly=bool(deficit < pupil.POLY_MAX_DEFICIT),
-        )
-    return lens
+    return dataclasses.replace(
+        lens, profile=profile, dead_frac=round(dead, 1),
+        profile_domain=domain,
+        profile_poly=bool(deficit < pupil.POLY_MAX_DEFICIT),
+    )
 
 
 def compile_camera(
@@ -144,40 +151,47 @@ def compile_camera(
     midpoint cover ``(2, n_keys - 1, 25000)``) come from ``generator``, a
     ``torch.Generator`` on ``device`` seeded 0 when absent, or from
     ``uniforms``, a dict of those arrays by name."""
-    dev = torch.device(device)
-    unknown = sorted(set(uniforms or ()) - set(UNIFORM_NAMES))
-    if unknown:
-        raise ValueError(f"unknown uniforms {unknown}; names: {UNIFORM_NAMES}")
-    lens = None
-    if config.lens_model is LensModel.RAYTRACED:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+    with span("zoic.compile"):
+        dev = torch.device(device)
+        unknown = sorted(set(uniforms or ()) - set(UNIFORM_NAMES))
+        if unknown:
+            raise ValueError(
+                f"unknown uniforms {unknown}; names: {UNIFORM_NAMES}")
+        lens = None
+        if config.lens_model is LensModel.RAYTRACED:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
 
-        def draw(name, shape):
-            return pupil.draw_uniforms(uniforms, name, shape, generator, dev)
+            def draw(name, shape):
+                return pupil.draw_uniforms(uniforms, name, shape, generator,
+                                           dev)
 
-        lens = _compile_lens(config, dev, draw)
-    fov = 2.0 * math.atan(config.sensor_width / (2.0 * config.focal_length))
-    tan_fov = math.tan(fov / 2.0)
-    aperture_radius = config.focal_length / (2.0 * config.fstop)
+            lens = _compile_lens(config, dev, draw)
+        fov = 2.0 * math.atan(config.sensor_width
+                              / (2.0 * config.focal_length))
+        tan_fov = math.tan(fov / 2.0)
+        aperture_radius = config.focal_length / (2.0 * config.fstop)
 
-    def f32(x):
-        return torch.tensor(x, dtype=torch.float32)
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32)
 
-    state = CameraState(
-        fov=f32(fov),
-        tan_fov=f32(tan_fov),
-        aperture_radius=f32(aperture_radius),
-        sensor_width=f32(config.sensor_width),
-        sensor_height=f32(config.sensor_height),
-        focal_distance=f32(config.focal_distance),
-        ov_distance=f32(config.optical_vignetting_distance),
-        ov_radius=f32(config.optical_vignetting_radius),
-        exposure_control=f32(config.exposure_control),
-        lens=lens,
-        bokeh=_load_bokeh(config),
-    )
-    return state.to(dev)
+        with span("zoic.compile.bokeh"):
+            bokeh = _load_bokeh(config)
+        state = CameraState(
+            fov=f32(fov),
+            tan_fov=f32(tan_fov),
+            aperture_radius=f32(aperture_radius),
+            sensor_width=f32(config.sensor_width),
+            sensor_height=f32(config.sensor_height),
+            focal_distance=f32(config.focal_distance),
+            ov_distance=f32(config.optical_vignetting_distance),
+            ov_radius=f32(config.optical_vignetting_radius),
+            exposure_control=f32(config.exposure_control),
+            lens=lens,
+            bokeh=bokeh,
+        )
+        with span("zoic.compile.to_device"):
+            return state.to(dev)
 
 
 def create_rays(
@@ -202,17 +216,16 @@ def create_rays(
     the two is required.  Strided inputs (columns of a ``[B, 2]`` sample
     tensor) are copied once here: the kernels read theirs in place.
     Returns ``(RayBatch, RayStats)``."""
-    dev = state.device
-    sx, sy, lensx, lensy = (
-        torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-        for a in (sx, sy, lensx, lensy)
-    )
-    if config.lens_model is LensModel.THINLENS:
-        return thinlens.create_rays(state, config, sx, sy, lensx, lensy,
-                                    seed=seed, generator=generator)
-    return raytraced.create_rays(
-        state, config, sx, sy, lensx, lensy, seed=seed, generator=generator
-    )
+    with span("zoic.create_rays"):
+        dev = state.device
+        sx, sy, lensx, lensy = (
+            torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+            for a in (sx, sy, lensx, lensy)
+        )
+        model = (thinlens if config.lens_model is LensModel.THINLENS
+                 else raytraced)
+        return model.create_rays(state, config, sx, sy, lensx, lensy,
+                                 seed=seed, generator=generator)
 
 
 class Camera:
@@ -262,29 +275,31 @@ class Camera:
         with the camera's original draws.  The exposure and the empirical
         vignetting parameters, read per ray by the reference (zoic.cpp:1802,
         1980), are refreshed every time."""
-        if config.lens_key() != self._lens_key:
-            if config.solve_key() == self.config.solve_key():
-                image = _load_bokeh(config)
-                self.state = dataclasses.replace(
-                    self.state,
-                    bokeh=None if image is None else image.to(self.device))
+        with span("zoic.update"):
+            if config.lens_key() != self._lens_key:
+                if config.solve_key() == self.config.solve_key():
+                    image = _load_bokeh(config)
+                    self.state = dataclasses.replace(
+                        self.state,
+                        bokeh=(None if image is None
+                               else image.to(self.device)))
+                else:
+                    self.state = self._compile(config)
+                self._lens_key = config.lens_key()
             else:
-                self.state = self._compile(config)
-            self._lens_key = config.lens_key()
-        else:
-            log.warning("[ZOIC] Skipping raytraced node update, parameters "
-                        "didn't change.")
+                log.warning("[ZOIC] Skipping raytraced node update, "
+                            "parameters didn't change.")
 
-        def f32(x):
-            return torch.tensor(x, dtype=torch.float32, device=self.device)
+            def f32(x):
+                return torch.tensor(x, dtype=torch.float32, device=self.device)
 
-        self.state = dataclasses.replace(
-            self.state,
-            exposure_control=f32(config.exposure_control),
-            ov_distance=f32(config.optical_vignetting_distance),
-            ov_radius=f32(config.optical_vignetting_radius),
-        )
-        self.config = config
+            self.state = dataclasses.replace(
+                self.state,
+                exposure_control=f32(config.exposure_control),
+                ov_distance=f32(config.optical_vignetting_distance),
+                ov_radius=f32(config.optical_vignetting_radius),
+            )
+            self.config = config
 
     def create_rays(self, sx: Tensor, sy: Tensor, lensx: Tensor,
                     lensy: Tensor, *, seed: Optional[int] = None,
@@ -293,21 +308,25 @@ class Camera:
         """:func:`create_rays` on the camera's state and config; the call's
         stats are added to :attr:`stats_totals` on the device, with no read
         back unless ``debug.draw`` is set."""
-        rays, stats = create_rays(self.state, self.config, sx, sy, lensx,
-                                  lensy, seed=seed, generator=generator)
-        self.stats_totals += torch.stack(
-            [stats.success, stats.vignetted, stats.tir]).to(torch.int64)
-        if self.config.debug.draw:
-            # _DRAW mode (zoic.cpp:53-57): keep the dump segments of a
-            # strided sub-batch of this generation; finish() writes
-            # draw.zoic and the diagram (the reference appends to the dump
-            # per ray and shells to draw.py at node_finish,
-            # zoic.cpp:1758-1764, 1741-1742)
-            segs = diag_tape.call_tape(self.state, self.config, sx, sy,
-                                       lensx, lensy, rays)
-            if segs.size:
-                self._draw_segments.append(segs)
-        return rays, stats
+        with span("zoic.camera.create_rays"):
+            rays, stats = create_rays(self.state, self.config, sx, sy,
+                                      lensx, lensy, seed=seed,
+                                      generator=generator)
+            with span("zoic.totals"):
+                self.stats_totals += torch.stack(
+                    [stats.success, stats.vignetted, stats.tir]
+                ).to(torch.int64)
+            if self.config.debug.draw:
+                # _DRAW mode (zoic.cpp:53-57): keep the dump segments of a
+                # strided sub-batch of this generation; finish() writes
+                # draw.zoic and the diagram (the reference appends to the
+                # dump per ray and shells to draw.py at node_finish,
+                # zoic.cpp:1758-1764, 1741-1742)
+                segs = diag_tape.call_tape(self.state, self.config, sx,
+                                           sy, lensx, lensy, rays)
+                if segs.size:
+                    self._draw_segments.append(segs)
+            return rays, stats
 
     def finish(self, out_dir: str = ".") -> Optional[str]:
         """The ``node_finish`` flow (zoic.cpp:1723-1745): log the run stats

@@ -39,6 +39,7 @@ from ..config import CameraConfig
 from ..ops import bokeh_kernel, epilogue_kernel, trace_kernel
 from ..optics import V3
 from ..system import CameraState, RayBatch, RayStats
+from ..utils.profiling import span
 from . import common
 
 Tensor = torch.Tensor
@@ -179,23 +180,25 @@ def kernel_inputs(state: CameraState, config: CameraConfig, lensx: Tensor,
     planes are drawn first; the pre-check runs when the config asks for
     it, the state has a profile and, with bokeh offsets (which fill the
     square), the profile was fitted over the square."""
-    lens = state.lens
-    presampled = bool(config.use_image)
-    retry_u1 = retry_u2 = None
-    if presampled:
-        lensx, lensy = bokeh_mod.sample(state.bokeh, lensx, lensy)
-        if config.max_tries > 0:
-            retry_u1, retry_u2 = retry_planes(state, config.max_tries,
-                                              lensx.shape[0], seed)
-    flags = dict(
-        max_tries=config.max_tries,
-        use_lut=bool(config.kolb_sampling_lut),
-        use_profile=bool(config.pupil_precheck and lens.profile is not None
-                         and (not presampled
-                              or lens.profile_domain == "square")),
-        presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2,
-    )
-    return lensx, lensy, flags
+    with span("zoic.kernel_inputs"):
+        lens = state.lens
+        presampled = bool(config.use_image)
+        retry_u1 = retry_u2 = None
+        if presampled:
+            lensx, lensy = bokeh_mod.sample(state.bokeh, lensx, lensy)
+            if config.max_tries > 0:
+                retry_u1, retry_u2 = retry_planes(state, config.max_tries,
+                                                  lensx.shape[0], seed)
+        flags = dict(
+            max_tries=config.max_tries,
+            use_lut=bool(config.kolb_sampling_lut),
+            use_profile=bool(config.pupil_precheck
+                             and lens.profile is not None
+                             and (not presampled
+                                  or lens.profile_domain == "square")),
+            presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2,
+        )
+        return lensx, lensy, flags
 
 
 def _create_rays_kernel(

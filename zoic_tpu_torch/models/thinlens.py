@@ -28,6 +28,7 @@ from ..config import CameraConfig
 from ..ops import epilogue_kernel, trace_kernel
 from ..optics import V3
 from ..system import CameraState, RayBatch, RayStats
+from ..utils.profiling import span
 from . import common
 
 Tensor = torch.Tensor
@@ -176,15 +177,18 @@ def _create_rays_kernel(
     presampled = bool(config.use_image)
     has_ov = config.optical_vignetting_distance > 0.0
     retry_u1 = retry_u2 = None
-    if presampled:
-        # attempt 0's bokeh-CDF draw per ray; with vignetting the retry
-        # rounds read presampled planes (zoic.cpp:1815 in-loop redraws)
-        lensx, lensy = bokeh_mod.sample(state.bokeh, lensx, lensy)
-        if has_ov and config.max_tries > 0 and config.use_dof:
-            if generator is None:
-                generator = torch.Generator(device=sx.device).manual_seed(seed)
-            retry_u1, retry_u2 = retry_planes(state, config, sx.shape[0],
-                                              generator)
+    with span("zoic.kernel_inputs"):
+        if presampled:
+            # attempt 0's bokeh-CDF draw per ray; with vignetting the retry
+            # rounds read presampled planes (zoic.cpp:1815 in-loop redraws)
+            lensx, lensy = bokeh_mod.sample(state.bokeh, lensx, lensy)
+            if has_ov and config.max_tries > 0 and config.use_dof:
+                with span("zoic.thinlens.retry_planes"):
+                    if generator is None:
+                        generator = torch.Generator(
+                            device=sx.device).manual_seed(seed)
+                    retry_u1, retry_u2 = retry_planes(
+                        state, config, sx.shape[0], generator)
     origin, direction, tries = trace_kernel.thinlens_fused(
         sx, sy, lensx, lensy,
         state.tan_fov, state.aperture_radius, state.focal_distance,

@@ -16,6 +16,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 Tensor = torch.Tensor
@@ -35,15 +36,17 @@ def _raw_stream(index: int) -> int:
 def bind(name: str, symbol: str, argtypes: Sequence, *,
          defines: Sequence[str] = ()):
     """The C function ``symbol`` of ``csrc/<name>.cu`` (built at first use)
-    with its argument types set; bound once per library and symbol.  The
-    function returns a CUDA error code as an int."""
+    with its argument types set; bound once per library and symbol, in the
+    span ``zoic.kernel.load``.  The function returns a CUDA error code as
+    an int."""
     key = (name, symbol, tuple(defines))
     fn = _BOUND.get(key)
     if fn is None:
-        fn = getattr(_build.load(name, defines=defines), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _BOUND[key] = fn
+        with span("zoic.kernel.load"):
+            fn = getattr(_build.load(name, defines=defines), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _BOUND[key] = fn
     return fn
 
 

@@ -38,6 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..system import BokehImage
+from ..utils.profiling import span
 from . import _launch, trace_kernel
 
 Tensor = torch.Tensor
@@ -262,15 +263,16 @@ def _kernel_tables(image: BokehImage, dev, planes: bool):
     hit = _TABLES.get(key)
     if hit is not None and hit[0]() is image:
         return hit[1]
-    if planes:
-        t = plane_tables(image)
-        tables = t._replace(words=t.words.to(dev).contiguous())
-    else:
-        tables = packed_tables(image).to(dev).contiguous()
-    for k in [k for k, v in _TABLES.items() if v[0]() is None]:
-        del _TABLES[k]
-    _TABLES[key] = (weakref.ref(image), tables)
-    return tables
+    with span("zoic.tables.build"):
+        if planes:
+            t = plane_tables(image)
+            tables = t._replace(words=t.words.to(dev).contiguous())
+        else:
+            tables = packed_tables(image).to(dev).contiguous()
+        for k in [k for k, v in _TABLES.items() if v[0]() is None]:
+            del _TABLES[k]
+        _TABLES[key] = (weakref.ref(image), tables)
+        return tables
 
 
 def _plan(image: BokehImage, n: int, hash_: bool, dev):
@@ -283,7 +285,7 @@ def _plan(image: BokehImage, n: int, hash_: bool, dev):
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     card = _CARD.get(index)
     if card is None:
-        with torch.cuda.device(index):
+        with span("zoic.kernel.load"), torch.cuda.device(index):
             limit = _launch.bind("bokeh", "zoic_bokeh_smem_limit", [])()
         if limit < 0:
             raise RuntimeError("bokeh kernel: shared-memory limit query failed")
@@ -294,10 +296,11 @@ def _plan(image: BokehImage, n: int, hash_: bool, dev):
     key = (index, shared, hash_, smem)
     per_sm = _BLOCKS_PER_SM.get(key)
     if per_sm is None:
-        fn = _launch.bind("bokeh", "zoic_bokeh_blocks_per_sm",
-                          [ctypes.c_int] * 3)
-        with torch.cuda.device(index):
-            per_sm = fn(int(shared), int(hash_), smem)
+        with span("zoic.kernel.load"):
+            fn = _launch.bind("bokeh", "zoic_bokeh_blocks_per_sm",
+                              [ctypes.c_int] * 3)
+            with torch.cuda.device(index):
+                per_sm = fn(int(shared), int(hash_), smem)
         if per_sm < 1:
             raise RuntimeError(f"bokeh kernel: no block fits an SM with "
                                f"{smem} bytes of tables ({per_sm})")
@@ -322,23 +325,25 @@ def sample_fused(image: BokehImage, u_row: Tensor,
     every image size :func:`zoic_tpu_torch.bokeh.build` makes; CPU tensors
     run :func:`sample_plain`."""
     global launches
-    if u_row.device.type == "cpu":
-        return sample_plain(image, u_row, u_col)
-    if u_row.device.type != "cuda":
-        raise ValueError(f"unsupported device {u_row.device}")
-    b, dev = _launch.check_flat((("u_row", u_row), ("u_col", u_col)))
-    dx, dy = _launch.empty(dev, ((b,), torch.float32), ((b,), torch.float32))
-    if b == 0:
+    with span("zoic.bokeh.sample"):
+        if u_row.device.type == "cpu":
+            return sample_plain(image, u_row, u_col)
+        if u_row.device.type != "cuda":
+            raise ValueError(f"unsupported device {u_row.device}")
+        b, dev = _launch.check_flat((("u_row", u_row), ("u_col", u_col)))
+        dx, dy = _launch.empty(dev, ((b,), torch.float32),
+                               ((b,), torch.float32))
+        if b == 0:
+            return dx, dy
+        packed, shared, grid = _plan(image, b, False, dev)
+        _launch.launch(
+            _launch.bind("bokeh", "zoic_bokeh_launch", _SAMPLE_ARGTYPES),
+            "bokeh", dev, u_row.data_ptr(), u_col.data_ptr(),
+            packed.data_ptr(), dx.data_ptr(), dy.data_ptr(), b, image.height,
+            image.width, packed.numel(), int(shared), grid,
+        )
+        launches += 1
         return dx, dy
-    packed, shared, grid = _plan(image, b, False, dev)
-    _launch.launch(
-        _launch.bind("bokeh", "zoic_bokeh_launch", _SAMPLE_ARGTYPES), "bokeh",
-        dev, u_row.data_ptr(), u_col.data_ptr(), packed.data_ptr(),
-        dx.data_ptr(), dy.data_ptr(), b, image.height, image.width,
-        packed.numel(), int(shared), grid,
-    )
-    launches += 1
-    return dx, dy
 
 
 def planes_fused(image: BokehImage, n_cells: int, pseed: int, salt1: int,
@@ -350,25 +355,27 @@ def planes_fused(image: BokehImage, n_cells: int, pseed: int, salt1: int,
     index itself and searches the brackets of :func:`plane_tables`; one on
     the CPU runs :func:`planes_plain`."""
     global plane_launches
-    dev = image.cdf_row.device
-    if dev.type == "cpu":
-        return planes_plain(image, n_cells, pseed, salt1, salt2)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not 0 <= n_cells < 1 << 31:
-        raise ValueError(f"n_cells {n_cells} outside [0, 2**31)")
-    dx, dy = _launch.empty(dev, ((n_cells,), torch.float32),
-                           ((n_cells,), torch.float32))
-    if n_cells == 0:
+    with span("zoic.bokeh.planes"):
+        dev = image.cdf_row.device
+        if dev.type == "cpu":
+            return planes_plain(image, n_cells, pseed, salt1, salt2)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if not 0 <= n_cells < 1 << 31:
+            raise ValueError(f"n_cells {n_cells} outside [0, 2**31)")
+        dx, dy = _launch.empty(dev, ((n_cells,), torch.float32),
+                               ((n_cells,), torch.float32))
+        if n_cells == 0:
+            return dx, dy
+        t, shared, grid = _plan(image, n_cells, True, dev)
+        m = 0xFFFFFFFF
+        _launch.launch(
+            _launch.bind("bokeh", "zoic_bokeh_planes_launch",
+                         _PLANES_ARGTYPES),
+            "bokeh planes", dev, t.words.data_ptr(), dx.data_ptr(),
+            dy.data_ptr(), n_cells, pseed & m, salt1 & m, salt2 & m,
+            image.height, image.width, t.words.numel(), t.log2_kr, t.log2_kc,
+            t.steps_r, t.steps_c, int(shared), grid,
+        )
+        plane_launches += 1
         return dx, dy
-    t, shared, grid = _plan(image, n_cells, True, dev)
-    m = 0xFFFFFFFF
-    _launch.launch(
-        _launch.bind("bokeh", "zoic_bokeh_planes_launch", _PLANES_ARGTYPES),
-        "bokeh planes", dev, t.words.data_ptr(), dx.data_ptr(),
-        dy.data_ptr(), n_cells, pseed & m, salt1 & m, salt2 & m,
-        image.height, image.width, t.words.numel(), t.log2_kr, t.log2_kc,
-        t.steps_r, t.steps_c, int(shared), grid,
-    )
-    plane_launches += 1
-    return dx, dy

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import _launch
 
 Tensor = torch.Tensor
@@ -134,23 +135,24 @@ def epilogue_fused(
     tensors launch ``csrc/epilogue.cu``, which reads the exposure on the
     card; CPU tensors run :func:`epilogue_plain`."""
     global launches
-    if tries.device.type == "cpu":
-        return epilogue_plain(tries, tir, origin, direction, exposure,
-                              max_tries, count_weight=count_weight)
-    if tries.device.type != "cuda":
-        raise ValueError(f"unsupported device {tries.device}")
-    b, dev, exposure = _check(tries, tir, origin, direction, exposure)
-    weight, d_ody, d_ddy, stats = _launch.empty(
-        dev, ((b,), torch.float32), ((b, 3), torch.float32),
-        ((b, 3), torch.float32), ((4,), torch.int32))
-    _launch.launch(
-        _launch.bind("epilogue", "zoic_epilogue_launch", _ARGTYPES),
-        "epilogue", dev, tries.data_ptr(),
-        tir.data_ptr() if tir is not None else None, origin.data_ptr(),
-        direction.data_ptr(), exposure.data_ptr(), weight.data_ptr(),
-        d_ody.data_ptr(), d_ddy.data_ptr(), stats.data_ptr(), b, max_tries,
-        int(count_weight),
-    )
-    if b > 0:
-        launches += 1
-    return weight, d_ody, d_ddy, stats
+    with span("zoic.epilogue"):
+        if tries.device.type == "cpu":
+            return epilogue_plain(tries, tir, origin, direction, exposure,
+                                  max_tries, count_weight=count_weight)
+        if tries.device.type != "cuda":
+            raise ValueError(f"unsupported device {tries.device}")
+        b, dev, exposure = _check(tries, tir, origin, direction, exposure)
+        weight, d_ody, d_ddy, stats = _launch.empty(
+            dev, ((b,), torch.float32), ((b, 3), torch.float32),
+            ((b, 3), torch.float32), ((4,), torch.int32))
+        _launch.launch(
+            _launch.bind("epilogue", "zoic_epilogue_launch", _ARGTYPES),
+            "epilogue", dev, tries.data_ptr(),
+            tir.data_ptr() if tir is not None else None, origin.data_ptr(),
+            direction.data_ptr(), exposure.data_ptr(), weight.data_ptr(),
+            d_ody.data_ptr(), d_ddy.data_ptr(), stats.data_ptr(), b,
+            max_tries, int(count_weight),
+        )
+        if b > 0:
+            launches += 1
+        return weight, d_ody, d_ddy, stats

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..system import LensSystem
+from ..utils.profiling import span
 from . import _launch
 
 Tensor = torch.Tensor
@@ -710,31 +711,33 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
     hit = _TABLES.get(key)
     if hit is not None and hit[0]() is lens and hit[1]() is sensor_width:
         return hit[2]
-    elems, shap, prof, scal = _prepare(lens, sensor_width, 0, 0, v)
-    n_elems, n_keys, n_coef = elems.shape[0], shap.shape[0], prof.shape[1]
-    if n_elems > MAX_ELEMS or n_keys > MAX_KEYS or n_coef > MAX_COEF:
-        raise ValueError(
-            f"lens tables ({n_elems} elements, {n_keys} keys, {n_coef} "
-            f"coefficients) exceed the kernel's ({MAX_ELEMS}, {MAX_KEYS}, "
-            f"{MAX_COEF})"
-        )
-    elems, prof, scal = (
-        np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
-        for t in (elems, prof, scal))
-    if v.flags:
-        flags = np.asarray(v.flags)
-        elems[:, 6] = np.where(flags & 1, 1.0, np.inf)
-        elems[:, 7] = np.where(flags & 2, -1.0, 1.0)
-    shap = shap.to(dev, torch.float32).contiguous()
-    tables = (elems, shap, prof, scal,
-              (elems.ctypes.data, shap.data_ptr(), prof.ctypes.data,
-               scal.ctypes.data))
-    if isinstance(sensor_width, Tensor):
-        for k in [k for k, val in _TABLES.items()
-                  if val[0]() is None or val[1]() is None]:
-            del _TABLES[k]
-        _TABLES[key] = (weakref.ref(lens), weakref.ref(sensor_width), tables)
-    return tables
+    with span("zoic.tables.build"):
+        elems, shap, prof, scal = _prepare(lens, sensor_width, 0, 0, v)
+        n_elems, n_keys, n_coef = elems.shape[0], shap.shape[0], prof.shape[1]
+        if n_elems > MAX_ELEMS or n_keys > MAX_KEYS or n_coef > MAX_COEF:
+            raise ValueError(
+                f"lens tables ({n_elems} elements, {n_keys} keys, {n_coef} "
+                f"coefficients) exceed the kernel's ({MAX_ELEMS}, {MAX_KEYS}, "
+                f"{MAX_COEF})"
+            )
+        elems, prof, scal = (
+            np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
+            for t in (elems, prof, scal))
+        if v.flags:
+            flags = np.asarray(v.flags)
+            elems[:, 6] = np.where(flags & 1, 1.0, np.inf)
+            elems[:, 7] = np.where(flags & 2, -1.0, 1.0)
+        shap = shap.to(dev, torch.float32).contiguous()
+        tables = (elems, shap, prof, scal,
+                  (elems.ctypes.data, shap.data_ptr(), prof.ctypes.data,
+                   scal.ctypes.data))
+        if isinstance(sensor_width, Tensor):
+            for k in [k for k, val in _TABLES.items()
+                      if val[0]() is None or val[1]() is None]:
+                del _TABLES[k]
+            _TABLES[key] = (weakref.ref(lens), weakref.ref(sensor_width),
+                            tables)
+        return tables
 
 
 # (variant word, counting build, device index) -> (SMs, blocks per SM)
@@ -749,16 +752,18 @@ def _grid(b: int, word: int, count: bool, dev) -> int:
     key = (word, count, index)
     hit = _BLOCKS_PER_SM.get(key)
     if hit is None:
-        fn = _launch.bind("raytraced", "zoic_raytraced_blocks_per_sm",
-                          [ctypes.c_int], defines=defines)
-        with torch.cuda.device(index):
-            per_sm = fn(word)
-        if per_sm < 1:
-            raise RuntimeError(
-                f"raytraced kernel: no instance for variant word {word}, or "
-                f"its occupancy query failed ({per_sm})")
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-        hit = _BLOCKS_PER_SM[key] = (sms, per_sm)
+        with span("zoic.kernel.load"):
+            fn = _launch.bind("raytraced", "zoic_raytraced_blocks_per_sm",
+                              [ctypes.c_int], defines=defines)
+            with torch.cuda.device(index):
+                per_sm = fn(word)
+            if per_sm < 1:
+                raise RuntimeError(
+                    f"raytraced kernel: no instance for variant word {word}, "
+                    f"or its occupancy query failed ({per_sm})")
+            sms = torch.cuda.get_device_properties(
+                index).multi_processor_count
+            hit = _BLOCKS_PER_SM[key] = (sms, per_sm)
     return persistent_grid(b, *hit)
 
 
@@ -821,16 +826,20 @@ def raytraced_fused(
     (:func:`raytraced_plane_index`).  CUDA tensors launch
     ``csrc/raytraced.cu``; CPU tensors run :func:`raytraced_plain`."""
     global launches
-    kw = dict(max_tries=max_tries, use_lut=use_lut, use_profile=use_profile,
-              presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2)
-    if sx.device.type == "cpu":
-        return raytraced_plain(lens, sx, sy, u1, u2, sensor_width, seed, **kw)
-    if sx.device.type != "cuda":
-        raise ValueError(f"unsupported device {sx.device}")
-    out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, **kw)
-    if sx.shape[0] > 0:
-        launches += 1
-    return out
+    with span("zoic.raytraced"):
+        kw = dict(max_tries=max_tries, use_lut=use_lut,
+                  use_profile=use_profile, presampled=presampled,
+                  retry_u1=retry_u1, retry_u2=retry_u2)
+        if sx.device.type == "cpu":
+            return raytraced_plain(lens, sx, sy, u1, u2, sensor_width, seed,
+                                   **kw)
+        if sx.device.type != "cuda":
+            raise ValueError(f"unsupported device {sx.device}")
+        out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed,
+                                **kw)
+        if sx.shape[0] > 0:
+            launches += 1
+        return out
 
 
 def raytraced_lane_use(
@@ -1022,18 +1031,21 @@ def thinlens_fused(
     ``[P, Bp]`` planes ``retry_u1/retry_u2``.  CUDA tensors launch
     ``csrc/thinlens.cu``; CPU tensors run :func:`thinlens_plain`."""
     global thinlens_launches
-    scal = (tan_fov, aperture_radius, focal_distance, ov_distance, ov_radius)
-    flags = dict(use_dof=use_dof, has_ov=has_ov, max_tries=max_tries,
-                 presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2)
-    if sx.device.type == "cpu":
-        return thinlens_plain(sx, sy, u1, u2, *scal, seed, **flags)
-    if sx.device.type != "cuda":
-        raise ValueError(f"unsupported device {sx.device}")
-    out = _thinlens_launch(sx, sy, u1, u2, thinlens_scalars(*scal), seed,
-                           **flags)
-    if sx.shape[0] > 0:
-        thinlens_launches += 1
-    return out
+    with span("zoic.thinlens"):
+        scal = (tan_fov, aperture_radius, focal_distance, ov_distance,
+                ov_radius)
+        flags = dict(use_dof=use_dof, has_ov=has_ov, max_tries=max_tries,
+                     presampled=presampled, retry_u1=retry_u1,
+                     retry_u2=retry_u2)
+        if sx.device.type == "cpu":
+            return thinlens_plain(sx, sy, u1, u2, *scal, seed, **flags)
+        if sx.device.type != "cuda":
+            raise ValueError(f"unsupported device {sx.device}")
+        out = _thinlens_launch(sx, sy, u1, u2, thinlens_scalars(*scal), seed,
+                               **flags)
+        if sx.shape[0] > 0:
+            thinlens_launches += 1
+        return out
 
 
 def thinlens_lane_use(

@@ -46,6 +46,7 @@ import torch
 from . import optics, trace
 from .optics import V3, f32
 from .system import LensSystem, PupilLUT, PupilProfile
+from .utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -572,235 +573,244 @@ def build_precheck(
         else torch.arange(n_keys, dtype=torch.float32, device=dev)
         * f32(FILM_WIDTH / 32)
     )
-    keys_np = _np(keys).astype(np.float64)
-    spacing = float(keys_np[1] - keys_np[0])
+    with span("zoic.precheck.covers"):
+        keys_np = _np(keys).astype(np.float64)
+        spacing = float(keys_np[1] - keys_np[0])
 
-    # --- fit set + held-out set at the keys, midpoint held-out between --
-    n_mid = max(n_samples // 2, 1)
-    mids = torch.tensor(keys_np[:-1] + spacing * 0.5, dtype=torch.float32,
-                        device=dev)
-    traces = []
-    for name, radii, n in (("cover_fit", keys, n_samples),
-                           ("cover_held", keys, n_samples),
-                           ("cover_mid", mids, n_mid)):
-        u = draw_uniforms(uniforms, name, (2, radii.shape[0], n), None, dev)
-        traces.append(_cover_trace(lens, radii, u, domain))
-    (lx, ly, ok), (lxh, lyh, okh), (lxm, lym, okm) = traces
-    lxn, lyn, okn = (_np(v) for v in (lx, ly, ok))
-    lxhn, lyhn, okhn = (_np(v) for v in (lxh, lyh, okh))
-    lxmn, lymn, okmn = (_np(v) for v in (lxm, lym, okm))
-    key_acceptance = ok.to(torch.float32).mean(1)
+        # --- fit set + held-out set at the keys, midpoint held-out between --
+        n_mid = max(n_samples // 2, 1)
+        mids = torch.tensor(keys_np[:-1] + spacing * 0.5, dtype=torch.float32,
+                            device=dev)
+        traces = []
+        for name, radii, n in (("cover_fit", keys, n_samples),
+                               ("cover_held", keys, n_samples),
+                               ("cover_mid", mids, n_mid)):
+            u = draw_uniforms(uniforms, name, (2, radii.shape[0], n), None, dev)
+            traces.append(_cover_trace(lens, radii, u, domain))
+        (lx, ly, ok), (lxh, lyh, okh), (lxm, lym, okm) = traces
+        lxn, lyn, okn = (_np(v) for v in (lx, ly, ok))
+        lxhn, lyhn, okhn = (_np(v) for v in (lxh, lyh, okh))
+        lxmn, lymn, okmn = (_np(v) for v in (lxm, lym, okm))
+        key_acceptance = ok.to(torch.float32).mean(1)
 
-    rhon = np.sqrt(lxn * lxn + lyn * lyn)
-    phin = np.arctan2(lyn, lxn)
+    with span("zoic.precheck.harmonic"):
+        rhon = np.sqrt(lxn * lxn + lyn * lyn)
+        phin = np.arctan2(lyn, lxn)
 
-    # --- harmonic fit (build_profile math, numpy f64) -------------------
-    n_angles = 16
-    bin_idx = np.clip(
-        ((phin + np.pi) / (2 * np.pi) * n_angles).astype(np.int64), 0, n_angles - 1
-    )
-    rho_max = np.zeros((n_keys, n_angles))
-    for k in range(n_keys):
-        np.maximum.at(
-            rho_max[k], bin_idx[k][okn[k]], rhon[k][okn[k]]
+        # --- harmonic fit (build_profile math, numpy f64) -------------------
+        n_angles = 16
+        bin_idx = np.clip(
+            ((phin + np.pi) / (2 * np.pi) * n_angles).astype(np.int64), 0, n_angles - 1
         )
-    centers = (np.arange(n_angles) + 0.5) / n_angles * 2 * np.pi - np.pi
-    basis = np.stack(
-        [np.ones_like(centers), np.cos(centers), np.cos(2 * centers),
-         np.cos(4 * centers)], -1
-    )
-    if lut is not None:
-        coef, *_ = np.linalg.lstsq(basis, rho_max.T, rcond=None)  # [4, K]
-        fit = basis @ coef
-        excess = np.maximum((rho_max.T - fit).max(0), 0.0)
-        hc0 = (coef[0] + excess + 0.005) * 1.01
-        hc1, hc2, hc4 = coef[1] * 1.01, coef[2] * 1.01, coef[3] * 1.01
-        # reject-all bound at keys with NO accepted cover sample, set before
-        # the held-out and midpoint passes (zoic_tpu/pupil.py:753-769)
-        emp = ~okn.any(1)
-        hc0 = np.where(emp, -0.05, hc0)
-        hc1 = np.where(emp, 0.0, hc1)
-        hc2 = np.where(emp, 0.0, hc2)
-        hc4 = np.where(emp, 0.0, hc4)
-    else:
-        # naive cover: support rotates with film azimuth (no R(theta) in
-        # the cover) — emit the rotation-invariant circumradius bound
-        hc0 = (rho_max.max(1) + 0.005) * 1.01
-        hc1 = hc2 = hc4 = np.zeros(n_keys)
-
-    def _harm_viol(radii_idx_pairs, lx_s, ly_s, ok_s):
-        rho_s = np.sqrt(lx_s * lx_s + ly_s * ly_s)
-        phi_s = np.arctan2(ly_s, lx_s)
-        out = np.zeros(n_keys)
-        for row, (i_a, i_b, w_b) in enumerate(radii_idx_pairs):
-            b = (
-                (hc0[i_a] * (1 - w_b) + hc0[i_b] * w_b)
-                + (hc1[i_a] * (1 - w_b) + hc1[i_b] * w_b) * np.cos(phi_s[row])
-                + (hc2[i_a] * (1 - w_b) + hc2[i_b] * w_b) * np.cos(2 * phi_s[row])
-                + (hc4[i_a] * (1 - w_b) + hc4[i_b] * w_b) * np.cos(4 * phi_s[row])
+        rho_max = np.zeros((n_keys, n_angles))
+        for k in range(n_keys):
+            np.maximum.at(
+                rho_max[k], bin_idx[k][okn[k]], rhon[k][okn[k]]
             )
-            v = np.where(ok_s[row], rho_s[row] - b, -np.inf).max()
-            if v > 0:
-                out[i_a] = max(out[i_a], v)
-                out[i_b] = max(out[i_b], v)
-        return out
+        centers = (np.arange(n_angles) + 0.5) / n_angles * 2 * np.pi - np.pi
+        basis = np.stack(
+            [np.ones_like(centers), np.cos(centers), np.cos(2 * centers),
+             np.cos(4 * centers)], -1
+        )
+        if lut is not None:
+            coef, *_ = np.linalg.lstsq(basis, rho_max.T, rcond=None)  # [4, K]
+            fit = basis @ coef
+            excess = np.maximum((rho_max.T - fit).max(0), 0.0)
+            hc0 = (coef[0] + excess + 0.005) * 1.01
+            hc1, hc2, hc4 = coef[1] * 1.01, coef[2] * 1.01, coef[3] * 1.01
+            # reject-all bound at keys with NO accepted cover sample, set before
+            # the held-out and midpoint passes (zoic_tpu/pupil.py:753-769)
+            emp = ~okn.any(1)
+            hc0 = np.where(emp, -0.05, hc0)
+            hc1 = np.where(emp, 0.0, hc1)
+            hc2 = np.where(emp, 0.0, hc2)
+            hc4 = np.where(emp, 0.0, hc4)
+        else:
+            # naive cover: support rotates with film azimuth (no R(theta) in
+            # the cover) — emit the rotation-invariant circumradius bound
+            hc0 = (rho_max.max(1) + 0.005) * 1.01
+            hc1 = hc2 = hc4 = np.zeros(n_keys)
 
-    # held-out at keys, then midpoints (lerped chain = kernel math)
-    hc0 = hc0 + _harm_viol([(k, k, 0.0) for k in range(n_keys)], lxhn, lyhn, okhn)
-    hc0 = hc0 + _harm_viol(
-        [(k, k + 1, 0.5) for k in range(n_keys - 1)], lxmn, lymn, okmn
-    )
+        def _harm_viol(radii_idx_pairs, lx_s, ly_s, ok_s):
+            rho_s = np.sqrt(lx_s * lx_s + ly_s * ly_s)
+            phi_s = np.arctan2(ly_s, lx_s)
+            out = np.zeros(n_keys)
+            for row, (i_a, i_b, w_b) in enumerate(radii_idx_pairs):
+                b = (
+                    (hc0[i_a] * (1 - w_b) + hc0[i_b] * w_b)
+                    + (hc1[i_a] * (1 - w_b) + hc1[i_b] * w_b) * np.cos(phi_s[row])
+                    + (hc2[i_a] * (1 - w_b) + hc2[i_b] * w_b) * np.cos(2 * phi_s[row])
+                    + (hc4[i_a] * (1 - w_b) + hc4[i_b] * w_b) * np.cos(4 * phi_s[row])
+                )
+                v = np.where(ok_s[row], rho_s[row] - b, -np.inf).max()
+                if v > 0:
+                    out[i_a] = max(out[i_a], v)
+                    out[i_b] = max(out[i_b], v)
+            return out
+
+        # held-out at keys, then midpoints (lerped chain = kernel math)
+        hc0 = hc0 + _harm_viol([(k, k, 0.0) for k in range(n_keys)], lxhn, lyhn, okhn)
+        hc0 = hc0 + _harm_viol(
+            [(k, k + 1, 0.5) for k in range(n_keys - 1)], lxmn, lymn, okmn
+        )
 
     # --- circle fit ------------------------------------------------------
-    a1, q1, a2, q2 = _fit_circles_np(lxn, lyn, okn)
-    if lut is None:
-        # rotation-invariant for the naive cover (see harmonic note)
-        r_circ = rho_max.max(1) * 1.01 + 0.005
-        a1 = a2 = np.zeros(n_keys)
-        q1 = q2 = np.where(okn.any(1), r_circ**2, -1.0)
-    else:
-        # smooth the selected center staircases with the degree-POLY_DEGREE
-        # family; radii are recomputed at the moved centers over ALL
-        # accepted samples, so soundness is unaffected by the smoothing
-        rm_fit = min(float(r_max), float(keys_np[-1])) if r_max else float(
-            keys_np[-1]
-        )
-        live = okn.any(1)
-        tt = keys_np / rm_fit
-        m = (keys_np <= rm_fit) & live
-        if m.sum() >= 3:
-            deg = min(POLY_DEGREE, int(m.sum()) - 1)
-            vv = tt[m, None] ** np.arange(deg + 1)[None, :]
-            for a in (a1, a2):
-                co, *_ = np.linalg.lstsq(vv, a[m], rcond=None)
-                a[m] = vv @ co
-        for k in np.where(live)[0]:
-            px, py = lxn[k][okn[k]], lyn[k][okn[k]]
-            r1k = np.sqrt(((px - a1[k]) ** 2 + py**2).max()) * 1.01 + 0.005
-            r2k = np.sqrt(((px - a2[k]) ** 2 + py**2).max()) * 1.01 + 0.005
-            q1[k] = r1k**2 - a1[k] ** 2
-            q2[k] = r2k**2 - a2[k] ** 2
-    v1, v2 = _circle_viol(a1, q1, a2, q2, lxhn, lyhn, okhn)
-    q1, q2 = q1 + v1, q2 + v2
-    # midpoints: the kernel lerps (a, q); loosen BOTH bracketing keys
-    a1m = (a1[:-1] + a1[1:]) * 0.5
-    a2m = (a2[:-1] + a2[1:]) * 0.5
-    q1m = (q1[:-1] + q1[1:]) * 0.5
-    q2m = (q2[:-1] + q2[1:]) * 0.5
-    v1m, v2m = _circle_viol(a1m, q1m, a2m, q2m, lxmn, lymn, okmn)
-    # raising BOTH bracketing keys' q by >= the interval's violation raises
-    # the lerped midpoint by >= it; a key shared by two intervals takes the
-    # larger requirement
-    for v, q in ((v1m, q1), (v2m, q2)):
-        u = np.zeros_like(q)
-        u[:-1] = v
-        u[1:] = np.maximum(u[1:], v)
-        q += u
+    with span("zoic.precheck.circles"):
+        a1, q1, a2, q2 = _fit_circles_np(lxn, lyn, okn)
+        if lut is None:
+            # rotation-invariant for the naive cover (see harmonic note)
+            r_circ = rho_max.max(1) * 1.01 + 0.005
+            a1 = a2 = np.zeros(n_keys)
+            q1 = q2 = np.where(okn.any(1), r_circ**2, -1.0)
+        else:
+            # smooth the selected center staircases with the degree-POLY_DEGREE
+            # family; radii are recomputed at the moved centers over ALL
+            # accepted samples, so soundness is unaffected by the smoothing
+            rm_fit = min(float(r_max), float(keys_np[-1])) if r_max else float(
+                keys_np[-1]
+            )
+            live = okn.any(1)
+            tt = keys_np / rm_fit
+            m = (keys_np <= rm_fit) & live
+            if m.sum() >= 3:
+                deg = min(POLY_DEGREE, int(m.sum()) - 1)
+                vv = tt[m, None] ** np.arange(deg + 1)[None, :]
+                for a in (a1, a2):
+                    co, *_ = np.linalg.lstsq(vv, a[m], rcond=None)
+                    a[m] = vv @ co
+            for k in np.where(live)[0]:
+                px, py = lxn[k][okn[k]], lyn[k][okn[k]]
+                r1k = np.sqrt(((px - a1[k]) ** 2 + py**2).max()) * 1.01 + 0.005
+                r2k = np.sqrt(((px - a2[k]) ** 2 + py**2).max()) * 1.01 + 0.005
+                q1[k] = r1k**2 - a1[k] ** 2
+                q2[k] = r2k**2 - a2[k] ** 2
+        v1, v2 = _circle_viol(a1, q1, a2, q2, lxhn, lyhn, okhn)
+        q1, q2 = q1 + v1, q2 + v2
+        # midpoints: the kernel lerps (a, q); loosen BOTH bracketing keys
+        a1m = (a1[:-1] + a1[1:]) * 0.5
+        a2m = (a2[:-1] + a2[1:]) * 0.5
+        q1m = (q1[:-1] + q1[1:]) * 0.5
+        q2m = (q2[:-1] + q2[1:]) * 0.5
+        v1m, v2m = _circle_viol(a1m, q1m, a2m, q2m, lxmn, lymn, okmn)
+        # raising BOTH bracketing keys' q by >= the interval's violation raises
+        # the lerped midpoint by >= it; a key shared by two intervals takes the
+        # larger requirement
+        for v, q in ((v1m, q1), (v2m, q2)):
+            u = np.zeros_like(q)
+            u[:-1] = v
+            u[1:] = np.maximum(u[1:], v)
+            q += u
 
     # --- pick the tighter form (film-weighted E proxy on held-out) ------
-    acc_h = okhn.mean(1)
-    rrh = lxhn * lxhn + lyhn * lyhn
-    phih = np.arctan2(lyhn, lxhn)
-    rhoh = np.sqrt(rrh)
-    pass_harm = (
-        rhoh
-        <= hc0[:, None]
-        + hc1[:, None] * np.cos(phih)
-        + hc2[:, None] * np.cos(2 * phih)
-        + hc4[:, None] * np.cos(4 * phih)
-    ).mean(1)
-    pass_circ = (
-        ((rrh - 2 * a1[:, None] * lxhn) <= q1[:, None])
-        & ((rrh - 2 * a2[:, None] * lxhn) <= q2[:, None])
-    ).mean(1)
-    rm = float(r_max) if r_max is not None else float(keys_np[-1])
-    w = np.where(keys_np <= rm, np.maximum(keys_np, keys_np[1]), 0.0)
-    live = (acc_h > 1e-6) & (w > 0)
-    if live.any():
-        e_h = float((w[live] * (pass_harm[live] / acc_h[live])).sum() / w[live].sum())
-        e_c = float((w[live] * (pass_circ[live] / acc_h[live])).sum() / w[live].sum())
-    else:
-        e_h = e_c = 1.0
-    kind = "circles" if e_c <= e_h else "harmonic"
-    log.info("[ZOIC] pupil pre-check: E[pass/accept] harmonic %.3f, circles "
-             "%.3f -> %s", e_h, e_c, kind)
-    chains = (a1, q1, a2, q2) if kind == "circles" else (hc0, hc1, hc2, hc4)
+    with span("zoic.precheck.pick"):
+        acc_h = okhn.mean(1)
+        rrh = lxhn * lxhn + lyhn * lyhn
+        phih = np.arctan2(lyhn, lxhn)
+        rhoh = np.sqrt(rrh)
+        pass_harm = (
+            rhoh
+            <= hc0[:, None]
+            + hc1[:, None] * np.cos(phih)
+            + hc2[:, None] * np.cos(2 * phih)
+            + hc4[:, None] * np.cos(4 * phih)
+        ).mean(1)
+        pass_circ = (
+            ((rrh - 2 * a1[:, None] * lxhn) <= q1[:, None])
+            & ((rrh - 2 * a2[:, None] * lxhn) <= q2[:, None])
+        ).mean(1)
+        rm = float(r_max) if r_max is not None else float(keys_np[-1])
+        w = np.where(keys_np <= rm, np.maximum(keys_np, keys_np[1]), 0.0)
+        live = (acc_h > 1e-6) & (w > 0)
+        if live.any():
+            e_h = float(
+                (w[live] * (pass_harm[live] / acc_h[live])).sum() / w[live].sum()
+            )
+            e_c = float(
+                (w[live] * (pass_circ[live] / acc_h[live])).sum() / w[live].sum()
+            )
+        else:
+            e_h = e_c = 1.0
+        kind = "circles" if e_c <= e_h else "harmonic"
+        log.info("[ZOIC] pupil pre-check: E[pass/accept] harmonic %.3f, circles "
+                 "%.3f -> %s", e_h, e_c, kind)
+        chains = (a1, q1, a2, q2) if kind == "circles" else (hc0, hc1, hc2, hc4)
 
-    def t32(a):
-        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+        def t32(a):
+            return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
 
-    prof = PupilProfile(
-        keys=keys,
-        c0=t32(chains[0]), c1=t32(chains[1]), c2=t32(chains[2]),
-        c4=t32(chains[3]),
-        poly=torch.zeros((4, POLY_DEGREE + 1), dtype=torch.float32,
-                         device=dev),
-        poly_scale=keys[-1],
-        kind=kind,
-    )
+        prof = PupilProfile(
+            keys=keys,
+            c0=t32(chains[0]), c1=t32(chains[1]), c2=t32(chains[2]),
+            c4=t32(chains[3]),
+            poly=torch.zeros((4, POLY_DEGREE + 1), dtype=torch.float32,
+                             device=dev),
+            poly_scale=keys[-1],
+            kind=kind,
+        )
 
     # --- polynomial bound form ------------------------------------------
     # harmonic: fit to the validated chain with the analytic domination
     # uplift; circles: fitted directly to the per-radius requirement
     # against smooth centers, validated on the fit, held-out and midpoint
     # sets (zoic_tpu/pupil.py:892-963)
-    deficit = float("inf")
-    if r_max is not None:
-        if kind == "harmonic":
-            poly, poly_scale, deficit = fit_profile_poly(prof, r_max=r_max)
-            prof = dataclasses.replace(prof, poly=poly, poly_scale=poly_scale)
-        else:
-            rm_fit = min(float(r_max), float(keys_np[-1]))
-            msk = keys_np <= rm_fit + 1e-9
-            live_fit = okn.any(1)
-            mid_msk = (keys_np[:-1] + spacing * 0.5) <= rm_fit + 1e-9
-            if bool(live_fit[msk].all()) and int(msk.sum()) >= (
-                CIRCLE_POLY_DEGREE + 2
-            ):
-                tk = keys_np[msk] / rm_fit
-                tm = (keys_np[:-1] + spacing * 0.5)[mid_msk] / rm_fit
-                vd = np.arange(CIRCLE_POLY_DEGREE + 1)
-                vk = tk[:, None] ** vd[None, :]
-                vm = tm[:, None] ** vd[None, :]
-                vall = np.concatenate([vk, vm], 0)
-                poly = np.zeros((4, CIRCLE_POLY_DEGREE + 1))
-                deficit = 0.0
-                for ci, (a_ch, _q_ch) in enumerate(((a1, q1), (a2, q2))):
-                    ja, jq = 2 * ci, 2 * ci + 1
-                    # center poly: fit the (smoothed) per-key centers
-                    ca, *_ = np.linalg.lstsq(vk, a_ch[msk], rcond=None)
-                    ak, am = vk @ ca, vm @ ca
-                    a_all = np.concatenate([ak, am])
-                    # per-radius requirement against the POLY centers,
-                    # margined on the radius like the chain (x1.01, +5e-3)
-                    req = np.empty(a_all.size)
-                    for row, k in enumerate(np.where(msk)[0]):
-                        sx = np.concatenate([lxn[k][okn[k]], lxhn[k][okhn[k]]])
-                        sy = np.concatenate([lyn[k][okn[k]], lyhn[k][okhn[k]]])
-                        req[row] = (
-                            (sx - ak[row]) ** 2 + sy**2
-                        ).max() if sx.size else 0.0
-                    n_k = int(msk.sum())
-                    for row, k in enumerate(np.where(mid_msk)[0]):
-                        sx, sy = lxmn[k][okmn[k]], lymn[k][okmn[k]]
-                        req[n_k + row] = (
-                            (sx - am[row]) ** 2 + sy**2
-                        ).max() if sx.size else 0.0
-                    r_m = np.sqrt(req) * 1.01 + 0.005
-                    q_req = r_m**2 - a_all**2
-                    cq, *_ = np.linalg.lstsq(vall, q_req, rcond=None)
-                    fitq = vall @ cq
-                    cq[0] += np.maximum((q_req - fitq).max(), 0.0) + 1e-4
-                    poly[ja], poly[jq] = ca, cq
-                    # tightness: radius inflation of the poly circle over
-                    # the margined requirement, at the validated radii
-                    r_poly = np.sqrt(
-                        np.maximum(vall @ cq + a_all**2, 0.0)
+    with span("zoic.precheck.poly"):
+        deficit = float("inf")
+        if r_max is not None:
+            if kind == "harmonic":
+                poly, poly_scale, deficit = fit_profile_poly(prof, r_max=r_max)
+                prof = dataclasses.replace(prof, poly=poly, poly_scale=poly_scale)
+            else:
+                rm_fit = min(float(r_max), float(keys_np[-1]))
+                msk = keys_np <= rm_fit + 1e-9
+                live_fit = okn.any(1)
+                mid_msk = (keys_np[:-1] + spacing * 0.5) <= rm_fit + 1e-9
+                if bool(live_fit[msk].all()) and int(msk.sum()) >= (
+                    CIRCLE_POLY_DEGREE + 2
+                ):
+                    tk = keys_np[msk] / rm_fit
+                    tm = (keys_np[:-1] + spacing * 0.5)[mid_msk] / rm_fit
+                    vd = np.arange(CIRCLE_POLY_DEGREE + 1)
+                    vk = tk[:, None] ** vd[None, :]
+                    vm = tm[:, None] ** vd[None, :]
+                    vall = np.concatenate([vk, vm], 0)
+                    poly = np.zeros((4, CIRCLE_POLY_DEGREE + 1))
+                    deficit = 0.0
+                    for ci, (a_ch, _q_ch) in enumerate(((a1, q1), (a2, q2))):
+                        ja, jq = 2 * ci, 2 * ci + 1
+                        # center poly: fit the (smoothed) per-key centers
+                        ca, *_ = np.linalg.lstsq(vk, a_ch[msk], rcond=None)
+                        ak, am = vk @ ca, vm @ ca
+                        a_all = np.concatenate([ak, am])
+                        # per-radius requirement against the POLY centers,
+                        # margined on the radius like the chain (x1.01, +5e-3)
+                        req = np.empty(a_all.size)
+                        for row, k in enumerate(np.where(msk)[0]):
+                            sx = np.concatenate([lxn[k][okn[k]], lxhn[k][okhn[k]]])
+                            sy = np.concatenate([lyn[k][okn[k]], lyhn[k][okhn[k]]])
+                            req[row] = (
+                                (sx - ak[row]) ** 2 + sy**2
+                            ).max() if sx.size else 0.0
+                        n_k = int(msk.sum())
+                        for row, k in enumerate(np.where(mid_msk)[0]):
+                            sx, sy = lxmn[k][okmn[k]], lymn[k][okmn[k]]
+                            req[n_k + row] = (
+                                (sx - am[row]) ** 2 + sy**2
+                            ).max() if sx.size else 0.0
+                        r_m = np.sqrt(req) * 1.01 + 0.005
+                        q_req = r_m**2 - a_all**2
+                        cq, *_ = np.linalg.lstsq(vall, q_req, rcond=None)
+                        fitq = vall @ cq
+                        cq[0] += np.maximum((q_req - fitq).max(), 0.0) + 1e-4
+                        poly[ja], poly[jq] = ca, cq
+                        # tightness: radius inflation of the poly circle over
+                        # the margined requirement, at the validated radii
+                        r_poly = np.sqrt(
+                            np.maximum(vall @ cq + a_all**2, 0.0)
+                        )
+                        deficit = max(deficit, float((r_poly - r_m).max()))
+                    prof = dataclasses.replace(
+                        prof,
+                        poly=t32(poly),
+                        poly_scale=torch.tensor(np.float32(rm_fit), device=dev),
                     )
-                    deficit = max(deficit, float((r_poly - r_m).max()))
-                prof = dataclasses.replace(
-                    prof,
-                    poly=t32(poly),
-                    poly_scale=torch.tensor(np.float32(rm_fit), device=dev),
-                )
     return prof, key_acceptance, deficit
