@@ -24,7 +24,11 @@ rays), through the entry points a user calls:
   compiled on the card from the port's lens files by ``compile_camera``
   and held against its shipped state (the lens-decided static fields
   exactly, the solve's scalars to 1e-5, the LUT and bound by what they
-  do: attempts/ray and the vignetted fraction of ``create_rays`` on both);
+  do: attempts/ray and the vignetted fraction of ``create_rays`` on both;
+  three launches of the circle fit kernel a compile with the LUT, two
+  without), then the pre-check's circle fit kernel on the headline's fit
+  cover at the compile's shapes, bit-equal to the numpy fit and timed
+  beside it (phase 24b);
 * the op-rate microbenchmark kernel, its 13 cases against their plain
   versions (bit-equal) and beside their bounds, its hand-written square
   root, division and reciprocal against PyTorch's over every exponent and
@@ -70,8 +74,8 @@ they draw and trace, on five cameras) gives the main build's tries.
 
     python3 chip_smoke.py [--primer-cycles N]
 
-Phases, one line each: the device; the kernel builds (seven ``nvcc``
-runs in parallel: five sources, the two camera kernels' counting builds);
+Phases, one line each: the device; the kernel builds (eight ``nvcc``
+runs in parallel: six sources, the two camera kernels' counting builds);
 then per camera the run through ``create_rays`` checked for launches (one
 camera kernel and one epilogue), finite outputs and its run counters, the
 kernel against its plain PyTorch version on the same inputs, the
@@ -98,7 +102,7 @@ examples (per lens the compile's seconds, the render's time, vignetting,
 the tape's segments and the coverage; the optimisation's losses); the
 entry points (shapes, launches, the dry run's counters).  Then the
 summary line (with the profiler readings taken and rejected), one JSON
-line of the kernel table (six entries: the five sources, the bokeh
+line of the kernel table (seven entries: the six sources, the bokeh
 source's plane entry apart), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
 It needs a CUDA card and ``nvcc``, and imports nothing of jax.
@@ -131,7 +135,8 @@ SEED = 20261016
 # agree and are live must agree to 1e-5 absolute
 MAX_TRIES_MISMATCH = 419
 PAYLOAD_ATOL = 1e-5
-KERNELS = ("raytraced", "thinlens", "bokeh", "roofline", "epilogue")
+KERNELS = ("raytraced", "thinlens", "bokeh", "roofline", "epilogue",
+           "circles")
 # the builds: every source with --fmad=false, the camera kernels also
 # counting lanes
 COUNT_LANES = ("ZOIC_COUNT_LANES",)
@@ -179,6 +184,12 @@ READINGS = {"taken": 0, "rejected": 0}
 # bytes/s, and float32 outside the tensor cores, 67 TFLOP/s counting an FMA
 # as two; one element-op per lane per clock is half of it
 HBM_BYTES_PER_S = 3.35e12
+# an FP64 add or multiply a slot of the FP64 pipes: the H100 SXM's 33.5e12
+# FP64 FLOP/s count an fma as two
+FP64_OPS_PER_S = 16.75e12
+# the circle fit phase: the compile's samples a key, timed calls an entry
+CIRCLES_N = 50_000
+CIRCLES_ITERS = 10
 F32_ELEMENT_OPS_PER_S = 67e12 / 2
 # element-ops per ray: the raytraced kernel's is the bench's work count
 # (zoic_tpu_torch.bench.USEFUL_OPS_PER_RAY); the thin-lens kernel's and the
@@ -1091,6 +1102,8 @@ def compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi, tag):
     seed, attempts/ray within ``ATTEMPTS_RTOL`` and the vignetted fraction
     within ``VIGNETTED_ATOL``.  The Monte-Carlo-decided statics are
     printed beside the shipped ones."""
+    from zoic_tpu_torch.ops import circles_kernel
+
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     sx, sy, lx, ly = draws(g, BATCH, dev)
     seed = (SEED + 3) % (1 << 22)
@@ -1098,10 +1111,15 @@ def compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi, tag):
     for i, name in enumerate(zt.data.CAMERAS):
         cfg = raytraced_config(zt, name, bokeh_path)
         torch.cuda.synchronize()
+        fits = circles_kernel.launches
         t0 = time.perf_counter()
         st = zt.compile_camera(cfg, dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        fits = circles_kernel.launches - fits
+        check(fits == (3 if cfg.kolb_sampling_lut else 2),
+              f"compile {name}: {fits} circle fit launches, not 3 with the "
+              f"LUT (reach, pick, the smoothing's reach) or 2 without")
         ref = zt.load_state(zt.data.state_path(name), device=dev)
         got, want = lens_statics(st.lens), lens_statics(ref.lens)
         for f in LENS_STATICS:
@@ -1118,7 +1136,8 @@ def compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi, tag):
         att = [1.0 + int(s_.tries_total) / BATCH for s_ in stats]
         vig = [int(s_.vignetted) / BATCH for s_ in stats]
         mc = {f: (got[f], want[f]) for f in MC_STATICS}
-        print(f"[{tag}.{i} compile {name}] {secs:.2f} s; lens statics equal; "
+        print(f"[{tag}.{i} compile {name}] {secs:.2f} s, {fits} circle fit "
+              f"launches; lens statics equal; "
               f"max solve rel err {max(rel.values()):.2e} (limit "
               f"{SOLVE_RTOL}); attempts/ray {att[0]:.6f} vs shipped "
               f"{att[1]:.6f}; vignetted {vig[0]:.6f} vs {vig[1]:.6f}; "
@@ -1132,6 +1151,96 @@ def compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi, tag):
     print(f"[{tag} compile summary] on {smi}: seconds per compile " + ", ".join(
         f"{n} {r['compile_s']:.2f}" for n, r in out.items()), flush=True)
     return out
+
+
+def circles_phase(zt, dev, smi, tag):
+    """The pre-check's circle fit on the headline's fit cover at the
+    compile's shapes (32 keys x ``CIRCLES_N`` samples, traced on the card
+    as the compile traces them): the kernel path of ``fit_circles`` and of
+    the smoothing's ``reach_at`` bit-equal to the numpy fit, the fit's two
+    entries, the whole kernel-path fit and the numpy fit timed on the host
+    clock (each ends in its read-back), and the three kernels' time on the
+    card by torch.profiler, beside the bound: the reach's and the pick's
+    FP64 operations (a subtract, a multiply, an add an (accepted sample,
+    centre) and a (subsampled sample, centre)) at ``FP64_OPS_PER_S``, or
+    the traces' bytes, whichever is larger."""
+    from zoic_tpu_torch import pupil
+    from zoic_tpu_torch.ops import circles_kernel as ck
+
+    st = zt.load_state(zt.data.state_path(), device=dev)
+    keys = st.lens.lut.keys
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    u = torch.rand((2, keys.shape[0], CIRCLES_N), generator=g, device=dev)
+    lx, ly, ok = (t.contiguous() for t in pupil._cover_trace(
+        st.lens, keys, u, "disk"))
+    lxn, lyn, okn = (t.cpu().numpy() for t in (lx, ly, ok))
+    n_keys = okn.shape[0]
+    before = ck.launches
+    got = ck.fit_circles(lx, ly, ok)
+    want, plain_s = seconds(lambda: pupil._fit_circles_np(lxn, lyn, okn))
+    centres = np.stack([got[0], got[2]], 1)
+    m2 = ck.reach_at(lx, ly, ok, centres)
+    check(ck.launches == before + 3, "the circle fit and the smoothing's "
+          "reach did not launch three entries")
+
+    def same(a, b):
+        return all(np.array_equal(np.asarray(x, np.float64).view(np.int64),
+                                  np.asarray(y, np.float64).view(np.int64))
+                   for x, y in zip(a, b))
+
+    fit_equal = same(got, want)
+    reach_equal = same([m2], [pupil._reach_np(lxn, lyn, okn, centres)])
+    check(fit_equal and reach_equal, f"circle fit kernel path: fit "
+          f"bit-equal {fit_equal}, smoothing reach bit-equal {reach_equal}")
+    cand = np.linspace(-3.0, 3.0, pupil._CIRCLE_CENTERS)
+    negi, posi = np.where(cand <= 0.0)[0], np.where(cand >= 0.0)[0]
+    stride = max(1, CIRCLES_N // pupil._CIRCLE_SEL_SAMPLES)
+    cand_t = torch.from_numpy(cand).to(dev)
+    rk = np.sqrt(np.maximum(ck.reach(lx, ly, ok, cand_t), 0.0)) * 1.01 + 0.005
+    calls = {
+        "fit": lambda: ck.fit_circles(lx, ly, ok),
+        "reach": lambda: ck.reach(lx, ly, ok, cand_t),
+        "pick": lambda: ck.pick(lx, ly, rk ** 2, cand, negi, posi, stride),
+        "reach_at": lambda: ck.reach_at(lx, ly, ok, centres),
+    }
+    host_ms = {}
+    for name, fn in calls.items():
+        fn()
+        host_ms[name] = statistics.median(
+            seconds(fn)[1] * 1e3 for _ in range(CIRCLES_ITERS))
+    plain_ms = min(plain_s, seconds(
+        lambda: pupil._fit_circles_np(lxn, lyn, okn))[1]) * 1e3
+    records, _ = profile_window(calls["fit"], host=False)
+    names = ("reach_kernel", "bits_kernel", "pair_kernel")
+    card_us = {k: sum(r[1] for r in records if k in r[0]) / PROFILED_CALLS
+               for k in names}
+    n_records = sum(1 for r in records if any(k in r[0] for k in names))
+    card_ms = (sum(card_us.values()) / 1e3
+               if n_records == len(names) * PROFILED_CALLS else None)
+    READINGS["taken" if card_ms is not None else "rejected"] += 1
+    accepted = int(okn.sum())
+    n_sub = -(-CIRCLES_N // stride)
+    ops = 3.0 * cand.size * (accepted + n_keys * n_sub)
+    by_ops = ops / FP64_OPS_PER_S * 1e3
+    by_bytes = (lx.nbytes + ly.nbytes + ok.nbytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max((by_ops, "operations"), (by_bytes, "bytes"))
+    print(f"[{tag} circles] headline fit cover, {n_keys} keys x {CIRCLES_N} "
+          f"samples, {accepted} accepted, pick stride {stride}: the kernel "
+          f"path bit-equal to the numpy fit and the smoothing's reach; host "
+          f"ms (median of {CIRCLES_ITERS}, read-backs in) fit "
+          f"{host_ms['fit']:.3f}, reach {host_ms['reach']:.3f}, pick "
+          f"{host_ms['pick']:.3f}, smoothing reach {host_ms['reach_at']:.3f};"
+          f" numpy fit {plain_ms:.1f} ms; card "
+          + (f"{card_ms:.4f} ms a fit (" + ", ".join(
+              f"{k} {v:.1f} us" for k, v in card_us.items()) + ")"
+             if card_ms is not None else
+             f"no reading ({n_records} records of "
+             f"{len(names) * PROFILED_CALLS})")
+          + f"; bound {bound_ms:.4f} ms ({bound_by}: {ops:.4g} FP64 "
+          f"operations, {by_bytes:.4f} ms of bytes); on {smi}", flush=True)
+    return {"ms": host_ms["fit"], "entries_ms": host_ms, "device_ms": card_ms,
+            "card_us": card_us, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": 0.0}
 
 
 def roofline_phase(rk, roofline, profiling, dev, smi, tag):
@@ -2059,7 +2168,8 @@ def main(argv=None) -> None:
         raise SystemExit("chip_smoke FAILED: torch.cuda.is_available() is "
                          "False; this smoke test needs a CUDA card")
     import zoic_tpu_torch as zt
-    from zoic_tpu_torch.ops import _build, bokeh_kernel, trace_kernel
+    from zoic_tpu_torch.ops import _build, bokeh_kernel, circles_kernel
+    from zoic_tpu_torch.ops import trace_kernel
     from zoic_tpu_torch.ops import roofline_kernel
     from zoic_tpu_torch.tools import roofline
     from zoic_tpu_torch.utils import profiling
@@ -2138,6 +2248,7 @@ def main(argv=None) -> None:
     # ---- the lens compile, the microbenchmark, the bench
     comp = compile_phase(zt, trace_kernel, bokeh_kernel, bokeh_path, dev, smi,
                          "24")
+    circ = circles_phase(zt, dev, smi, "24b")
     roof = roofline_phase(roofline_kernel, roofline, profiling, dev, smi,
                           "25")
     bn = bench_phase(trace_kernel, bokeh_kernel, roofline_kernel, kind, "26")
@@ -2283,6 +2394,23 @@ def main(argv=None) -> None:
         "bound_by": epi["bound"][1],
         "library_ms": None,
         "config": "raytraced_headline",
+    }, {
+        "name": "circles",
+        "route": "cuda",
+        "source": "zoic_tpu_torch/csrc/circles.cu",
+        "replaces": "no TPU kernel: the JAX package fits on the host in "
+                    "numpy, zoic_tpu/pupil.py:612",
+        "launches": circles_kernel.launches,
+        "max_abs_err": circ["max_abs_err"],
+        "ms": circ["ms"],
+        "device_ms": circ["device_ms"],
+        "plain_ms": circ["plain_ms"],
+        "bound_ms": circ["bound_ms"],
+        "bound_by": circ["bound_by"],
+        "library_ms": None,
+        "config": f"headline fit cover, 32 keys x {CIRCLES_N}",
+        "entries_ms": circ["entries_ms"],
+        "card_us": circ["card_us"],
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
           and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,

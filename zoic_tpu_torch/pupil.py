@@ -11,8 +11,10 @@ Port of what ``zoic_tpu.compile_camera`` reaches in ``zoic_tpu/pupil.py``:
 * :func:`build_precheck` — the pupil pre-check bound: three cover traces (fit,
   held-out, key midpoints) under the active sampling cover on the device,
   then the JAX package's numpy float64 fits of the harmonic polar bound and
-  the 2-circle cover, held-out loosening, the tighter form kept, and its
-  polynomial form (:func:`fit_profile_poly`, :func:`_poly_interval_max`);
+  the 2-circle cover (its two large reductions in ``csrc/circles.cu`` for
+  CUDA tensors, bit-equal: ``ops/circles_kernel.py``), held-out loosening,
+  the tighter form kept, and its polynomial form (:func:`fit_profile_poly`,
+  :func:`_poly_interval_max`);
 * :func:`dead_film_fraction`;
 
 and what the exact eager path and the tests reach:
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from . import optics, trace
+from .ops import circles_kernel
 from .optics import V3, f32
 from .system import LensSystem, PupilLUT, PupilProfile
 from .utils.profiling import span
@@ -531,16 +534,32 @@ def _fit_circles_np(lxn, lyn, okn):
     return a1, q1, a2, q2
 
 
+def _reach_np(lxn, lyn, okn, centres):
+    """The smoothing loop's reach (numpy, host side): ``m2[k, j]``, the max
+    over key ``k``'s accepted samples of ``(lx - centres[k, j]) ** 2 +
+    ly ** 2``, -1 where the key has none."""
+    m2 = np.full(centres.shape, -1.0)
+    for k in np.where(okn.any(1))[0]:
+        px, py = lxn[k][okn[k]], lyn[k][okn[k]]
+        for j, a in enumerate(centres[k]):
+            m2[k, j] = ((px - a) ** 2 + py**2).max()
+    return m2
+
+
 def _circle_viol(a1, q1, a2, q2, lxn, lyn, okn):
     """Per-key q loosening needed so every accepted sample passes BOTH
-    circles: max over accepted of (rho^2 - 2 a_j lx - q_j), per circle."""
-    rr = lxn * lxn + lyn * lyn
-    v1 = np.where(okn, rr - 2.0 * a1[:, None] * lxn - q1[:, None], -np.inf)
-    v2 = np.where(okn, rr - 2.0 * a2[:, None] * lxn - q2[:, None], -np.inf)
-    return (
-        np.maximum(v1.max(1), 0.0),
-        np.maximum(v2.max(1), 0.0),
-    )
+    circles: max over accepted of (rho^2 - 2 a_j lx - q_j), per circle,
+    floored at 0 (0 where a key has none).  Over a key's accepted samples
+    alone, and with q_j subtracted after the max: rounding is monotone, so
+    max(fl(x - q)) = fl(max(x) - q) and the bits are those of the
+    reference's masked [keys, samples] form (``zoic_tpu/pupil.py``)."""
+    v1, v2 = np.zeros(len(a1)), np.zeros(len(a2))
+    for k in np.where(okn.any(1))[0]:
+        x, y = lxn[k][okn[k]], lyn[k][okn[k]]
+        rr = x * x + y * y
+        v1[k] = np.maximum((rr - 2.0 * a1[k] * x).max() - q1[k], 0.0)
+        v2[k] = np.maximum((rr - 2.0 * a2[k] * x).max() - q2[k], 0.0)
+    return v1, v2
 
 
 def build_precheck(
@@ -656,7 +675,8 @@ def build_precheck(
 
     # --- circle fit ------------------------------------------------------
     with span("zoic.precheck.circles"):
-        a1, q1, a2, q2 = _fit_circles_np(lxn, lyn, okn)
+        # CUDA tensors fit on the card (ops/circles_kernel.py), bit-equal
+        a1, q1, a2, q2 = circles_kernel.fit_circles(lx, ly, ok)
         if lut is None:
             # rotation-invariant for the naive cover (see harmonic note)
             r_circ = rho_max.max(1) * 1.01 + 0.005
@@ -678,10 +698,10 @@ def build_precheck(
                 for a in (a1, a2):
                     co, *_ = np.linalg.lstsq(vv, a[m], rcond=None)
                     a[m] = vv @ co
+            m2 = circles_kernel.reach_at(lx, ly, ok, np.stack([a1, a2], 1))
             for k in np.where(live)[0]:
-                px, py = lxn[k][okn[k]], lyn[k][okn[k]]
-                r1k = np.sqrt(((px - a1[k]) ** 2 + py**2).max()) * 1.01 + 0.005
-                r2k = np.sqrt(((px - a2[k]) ** 2 + py**2).max()) * 1.01 + 0.005
+                r1k = np.sqrt(m2[k, 0]) * 1.01 + 0.005
+                r2k = np.sqrt(m2[k, 1]) * 1.01 + 0.005
                 q1[k] = r1k**2 - a1[k] ** 2
                 q2[k] = r2k**2 - a2[k] ** 2
         v1, v2 = _circle_viol(a1, q1, a2, q2, lxhn, lyhn, okhn)
