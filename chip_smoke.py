@@ -76,13 +76,17 @@ they draw and trace, on five cameras) gives the main build's tries.
 
 Phases, one line each: the device; the kernel builds (eight ``nvcc``
 runs in parallel: six sources, the two camera kernels' counting builds);
-then per camera the run through ``create_rays`` checked for launches (one
-camera kernel and one epilogue), finite outputs and its run counters, the
+then per camera the run through ``create_rays`` checked for launches (a
+raytraced camera: one camera kernel and one epilogue; a thin lens: one
+launch of its kernel's instance that writes finished rays, and no
+epilogue), finite outputs and its run counters, the
 kernel against its plain PyTorch version on the same inputs, the
 epilogue kernel (weight, exposure, fake derivatives and the four counters
 in one pass) against its plain version on that kernel's outputs bit for
 bit (also at exposure +-0.5, with tries at ``max_tries + 1``, and on the
-ragged batches), and timings with
+ragged batches), a thin lens's finished rays' instance against its plain
+version (the camera kernel's, then the epilogue's) bit for bit at its
+exposure and at +-0.5, and timings with
 CUDA events and, for the kernel's own time on the card, torch.profiler,
 with the call's device time split per kernel (a profiler reading is used
 only where its window kept one record per call and events >= card >=
@@ -102,8 +106,9 @@ examples (per lens the compile's seconds, the render's time, vignetting,
 the tape's segments and the coverage; the optimisation's losses); the
 entry points (shapes, launches, the dry run's counters).  Then the
 summary line (with the profiler readings taken and rejected), one JSON
-line of the kernel table (seven entries: the six sources, the bokeh
-source's plane entry apart), the card's name and power limit from
+line of the kernel table (eight entries: the six sources, the bokeh
+source's plane entry and the thin-lens source's finished rays' instance
+apart), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
 It needs a CUDA card and ``nvcc``, and imports nothing of jax.
 """
@@ -476,6 +481,7 @@ def reset_counts(trace_kernel, bokeh_kernel, roofline_kernel=None) -> None:
     epilogue_kernel.launches = 0
     trace_kernel.launches = 0
     trace_kernel.thinlens_launches = 0
+    trace_kernel.thinlens_rays_launches = 0
     bokeh_kernel.launches = 0
     bokeh_kernel.plane_launches = 0
     if roofline_kernel is not None:
@@ -611,6 +617,62 @@ def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
     return out
 
 
+def rays_vs_plain(trace_kernel, name, args, kw, exposure, tag, smi=None):
+    """The thin lens's whole kernel path (``thinlens_rays``, the camera
+    kernel's instance that writes finished rays) against its plain version
+    (``thinlens_rays_plain``: the camera kernel's plain version, then the
+    epilogue's) bit for bit, every output and the four counters: at the
+    state's exposure and at +0.5 and -0.5; two launches must give the same
+    bits.  With ``smi`` also its time by CUDA events and on the card beside
+    the plain version's and its byte bound (16 B in, 52 B out a ray).
+    Prints one line under ``tag``."""
+    dev = args[0].device
+    cases = [("the state's exposure", exposure)] + [
+        (f"exposure {e:+}", torch.tensor(e, dtype=torch.float32, device=dev))
+        for e in (0.5, -0.5)]
+    stats, first = {}, None
+    for label, ex in cases:
+        k = trace_kernel.thinlens_rays(*args, ex, **kw)
+        p = trace_kernel.thinlens_rays_plain(*args, ex, **kw)
+        torch.cuda.synchronize()
+        stats[label] = k[5].tolist()
+        check(bits_equal(k, p), f"{name}: the finished rays' instance and "
+              f"its plain version differ ({label}): stats {k[5].tolist()} "
+              f"vs {p[5].tolist()}")
+        first = first or k
+    again = trace_kernel.thinlens_rays(*args, exposure, **kw)
+    check(bits_equal(again, first),
+          f"{name}: two launches of the finished rays' instance differ")
+    out = {"max_abs_err": 0.0}
+    line = (f"[{tag}] B = {args[0].numel()}: origin, dir, weight, dOdy, "
+            f"dDdy and the counters bit-equal to the plain version in "
+            f"{len(cases)} cases (stats {stats}); two launches bit-equal")
+    if smi is not None:
+        def fused():
+            return trace_kernel.thinlens_rays(*args, exposure, **kw)
+
+        timed = {"kernel": time_ms(fused, lambda: ()),
+                 "plain": time_ms(lambda: trace_kernel.thinlens_rays_plain(
+                     *args, exposure, **kw), lambda: ())}
+        n = args[0].numel()
+        n_bytes = nbytes(*args[:4], *first[:5])
+        rays_bound = bound(n_bytes, (THINLENS_OPS_PER_RAY
+                                     + EPILOGUE_OPS_PER_RAY) * n)
+        kernel_ms = statistics.median(timed["kernel"])
+        dev_ms = card_reading(fused, "thinlens_kernel<true>", kernel_ms,
+                              rays_bound[0], tag)
+        out.update(kernel_ms=kernel_ms, device_ms=dev_ms,
+                   plain_ms=statistics.median(timed["plain"]),
+                   bytes=n_bytes, bound=rays_bound)
+        line += (f"; median of 10 (3 warm-up), on {smi}: "
+                 + median_line(timed) + f"; kernel on the card "
+                 f"{card_text(dev_ms)} (profiler, {PROFILED_CALLS} launches; "
+                 f"bound {rays_bound[0]:.4f} ms, {rays_bound[1]}, "
+                 f"{n_bytes / n:.0f} B/ray)")
+    print(line, flush=True)
+    return out
+
+
 def fresh_inputs(state, cfg, tg: torch.Generator, dev):
     """A maker of the raytraced kernel's arguments at ``BATCH``: fresh
     draws, retry seed and planes per call, from the generator ``tg``."""
@@ -742,10 +804,12 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
 
 def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
                    tag):
-    """Drive one thin-lens config through compile_camera + create_rays,
-    check the run, hold the kernel and the epilogue kernel against their
-    plain versions on the same inputs, and time kernel, plain and
-    create_rays (and the epilogue on thinlens_f1.4)."""
+    """Drive one thin-lens config through compile_camera + create_rays
+    (one launch of the kernel's instance that writes finished rays, no
+    epilogue), check the run, hold the camera kernel, the epilogue kernel
+    and the instance that writes finished rays against their plain
+    versions on the same inputs, and time kernel, plain and create_rays
+    (and the epilogue and the finished rays' instance on thinlens_f1.4)."""
     from zoic_tpu_torch.models import thinlens as thin_model
     from zoic_tpu_torch.ops import epilogue_kernel as ek
 
@@ -756,10 +820,14 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     reset_counts(trace_kernel, bokeh_kernel)
     rays, stats = zt.create_rays(state, cfg, sx, sy, lx, ly, generator=g)
     torch.cuda.synchronize()
-    n_thin, n_bokeh = trace_kernel.thinlens_launches, bokeh_kernel.launches
+    n_rays, n_bokeh = (trace_kernel.thinlens_rays_launches,
+                       bokeh_kernel.launches)
     n_epilogue = ek.launches
-    check(n_thin > 0, f"{name}: no thinlens kernel launch")
-    check(n_epilogue == 1, f"{name}: {n_epilogue} epilogue launches")
+    check(n_rays == 1, f"{name}: {n_rays} launches of the finished rays' "
+          "instance")
+    check(trace_kernel.thinlens_launches == 0,
+          f"{name}: the camera kernel's first instance launched")
+    check(n_epilogue == 0, f"{name}: {n_epilogue} epilogue launches")
     check(trace_kernel.launches == 0, f"{name}: a raytraced kernel launched")
     check((n_bokeh > 0) == cfg.use_image,
           f"{name}: {n_bokeh} bokeh launches with use_image={cfg.use_image}")
@@ -780,7 +848,7 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     live = rays.weight > 0
     norm_err = float((rays.dir[live].norm(dim=1) - 1.0).abs().max())
     check(norm_err < 1e-4, f"{name}: live directions not unit: {norm_err}")
-    print(f"[{tag}a {name}] launches thinlens {n_thin} bokeh {n_bokeh} "
+    print(f"[{tag}a {name}] launches thinlens_rays {n_rays} bokeh {n_bokeh} "
           f"epilogue {n_epilogue}; "
           f"success {success} vignetted {vig}; attempts/ray {attempts:.6f};"
           f" max ||dir|-1| {norm_err:.2e}", flush=True)
@@ -800,6 +868,7 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     kw = dict(use_dof=cfg.use_dof, has_ov=has_ov, max_tries=cfg.max_tries,
               presampled=cfg.use_image, **planes)
     ko, kd, kt = trace_kernel.thinlens_fused(*args, **kw)
+    n_thin = trace_kernel.thinlens_launches
     po, pd, pt = trace_kernel.thinlens_plain(*args, **kw)
     torch.cuda.synchronize()
     mismatch = int((kt != pt).sum())
@@ -817,6 +886,10 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
         name, kt, None, ko, kd, state.exposure_control, cfg.max_tries,
         cfg.use_dof, f"{tag}b {name} epilogue vs plain",
         smi if name == "thinlens_f1.4" else None)
+    fold = rays_vs_plain(trace_kernel, name, args, kw,
+                         state.exposure_control,
+                         f"{tag}b {name} finished rays vs plain",
+                         smi if name == "thinlens_f1.4" else None)
 
     # timings (information only), fresh draws and seed per call
     tg = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -859,6 +932,7 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
           f"{thin_bound[0]:.4f} ms, {thin_bound[1]}); "
           + split_text(split, "thinlens_kernel"), flush=True)
     return {"thinlens_launches": n_thin, "bokeh_launches": n_bokeh,
+            "rays_launches": n_rays, "rays": fold,
             "epilogue_launches": n_epilogue, "epilogue": epi,
             "split": split,
             "bytes": n_bytes, "bound": thin_bound, "max_abs_err": err,
@@ -1366,6 +1440,7 @@ def counts(trace_kernel, bokeh_kernel, rk) -> dict:
 
     return {"raytraced": trace_kernel.launches,
             "thinlens": trace_kernel.thinlens_launches,
+            "thinlens_rays": trace_kernel.thinlens_rays_launches,
             "bokeh": bokeh_kernel.launches,
             "bokeh_planes": bokeh_kernel.plane_launches,
             "roofline": rk.launches,
@@ -1514,7 +1589,8 @@ def camera_phase(zt, kernels, bokeh_path, dev, smi, tag):
         oc = counts(trace_kernel, bokeh_kernel, rk)
         add_counts(launched, oc)
         check_rays(name, orays, ostats, BATCH)
-        kernel = "thinlens" if name.startswith("thin") else "raytraced"
+        kernel = ("thinlens_rays" if name.startswith("thin")
+                  else "raytraced")
         check(oc[kernel] > 0 and oc["bokeh"] > 0,
               f"{name}: launches {oc}")
         if kernel == "raytraced":
@@ -1809,7 +1885,7 @@ def diag_phase(zt, kernels, bokeh_path, dev, smi, tag):
         c = counts(trace_kernel, bokeh_kernel, rk)
         add_counts(launched, c)
         raytraced = cfg.lens_model is zt.LensModel.RAYTRACED
-        kernel = "raytraced" if raytraced else "thinlens"
+        kernel = "raytraced" if raytraced else "thinlens_rays"
         check(c[kernel] == len(seeds) and (c["bokeh"] > 0) == cfg.use_image,
               f"{name} draw mode: launches {c}")
         check(len(cam._draw_segments) == len(seeds),
@@ -2207,8 +2283,9 @@ def main(argv=None) -> None:
         thin[name] = thinlens_phase(zt, trace_kernel, bokeh_kernel, name,
                                     tcfg, dev, smi, f"{7 + i}")
     print("[11s thin-lens summary] " + json.dumps({
-        name: {k: r[k] for k in ("kernel_ms", "device_ms", "plain_ms",
-                                 "create_rays_ms", "split")}
+        name: {**{k: r[k] for k in ("kernel_ms", "device_ms", "plain_ms",
+                                    "create_rays_ms", "split")},
+               "rays": r["rays"]}
         for name, r in thin.items()}), flush=True)
     # ---- the bokeh kernel against its plain version on both paths, and
     # its retry-plane entry
@@ -2411,13 +2488,32 @@ def main(argv=None) -> None:
         "config": f"headline fit cover, 32 keys x {CIRCLES_N}",
         "entries_ms": circ["entries_ms"],
         "card_us": circ["card_us"],
+    }, {
+        "name": "thinlens_rays",
+        "route": "cuda",
+        "source": "zoic_tpu_torch/csrc/thinlens.cu",
+        "replaces": "zoic_tpu/ops/trace_kernel.py:1381 and the thin lens's "
+                    "XLA-fused epilogue, zoic_tpu/models/common.py:105",
+        "launches": (sum(r["rays_launches"] for r in thin.values())
+                     + more["thinlens_rays"]),
+        "max_abs_err": max(r["rays"]["max_abs_err"] for r in thin.values()),
+        "ms": rep["rays"]["kernel_ms"],
+        "device_ms": rep["rays"]["device_ms"],
+        "plain_ms": rep["rays"]["plain_ms"],
+        "bound_ms": rep["rays"]["bound"][0],
+        "bound_by": rep["rays"]["bound"][1],
+        "library_ms": None,
+        "config": "thinlens_f1.4",
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
           and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,
           "the bokeh configs launched no bokeh kernel or plane entry")
-    check(entries[5]["launches"] == entries[0]["launches"]
-          + entries[1]["launches"], "the epilogue did not launch once for "
-          "each camera kernel launch of the main paths")
+    check(entries[5]["launches"] == entries[0]["launches"],
+          "the epilogue did not launch once for each raytraced kernel "
+          "launch of the main paths")
+    check(entries[7]["launches"] > 0 and more["thinlens"] == 0,
+          "the thin-lens main paths did not run the finished rays' instance "
+          "alone")
 
     print("[32 summary] " + json.dumps({
         "compile_s": {n: r["compile_s"] for n, r in comp.items()},

@@ -180,12 +180,12 @@ def test_create_rays_takes_columns_of_a_sample_tensor(cuda_state, model):
     sx, sy, lx, ly = _inputs(4_133, seed=2)
     uv, lens = torch.stack([sx, sy], 1), torch.stack([lx, ly], 1)
     assert not uv[:, 0].is_contiguous()
-    before = tk.launches + tk.thinlens_launches
+    before = tk.launches + tk.thinlens_rays_launches
     got, gs = zpt.create_rays(st, cfg, uv[:, 0], uv[:, 1], lens[:, 0],
                               lens[:, 1], seed=77)
     want, ws = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=77)
     torch.cuda.synchronize()
-    assert tk.launches + tk.thinlens_launches == before + 2
+    assert tk.launches + tk.thinlens_rays_launches == before + 2
     assert torch.equal(got.origin, want.origin)
     assert torch.equal(got.dir, want.dir)
     assert torch.equal(got.weight, want.weight)
@@ -489,10 +489,10 @@ def test_thinlens_create_rays_on_cuda(cuda_dev, tmp_path):
     state = zpt.compile_camera(cfg, cuda_dev)
     sx, sy, lx, ly = _inputs(65_536, seed=2)
     g = torch.Generator(device="cuda").manual_seed(3)
-    t0, b0 = tk.thinlens_launches, bk.launches
+    t0, b0 = tk.thinlens_rays_launches, bk.launches
     rays, stats = zpt.create_rays(state, cfg, sx, sy, lx, ly, generator=g)
     torch.cuda.synchronize()
-    assert tk.thinlens_launches == t0 + 1 and bk.launches == b0 + 2
+    assert tk.thinlens_rays_launches == t0 + 1 and bk.launches == b0 + 2
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert int(stats.tries_total) > 0
     assert bool(torch.isfinite(rays.dir).all()) and rays.dir.is_cuda

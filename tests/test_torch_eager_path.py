@@ -292,7 +292,7 @@ def test_non_flat_batch_runs_the_kernel(states, model, monkeypatch,
                                 optical_vignetting_distance=4.0,
                                 optical_vignetting_radius=0.6)
         st = zpt.compile_camera(cfg, "cpu")
-        name = "thinlens_fused"
+        name = "thinlens_rays"
     fused, calls = getattr(tk, name), []
 
     def counted(*a, **k):
@@ -326,6 +326,7 @@ def test_impl_jnp_never_reaches_a_kernel(states, model, monkeypatch,
 
     monkeypatch.setattr(tk, "raytraced_fused", refuse)
     monkeypatch.setattr(tk, "thinlens_fused", refuse)
+    monkeypatch.setattr(tk, "thinlens_rays", refuse)
     if model == "raytraced":
         st = states["headline"][1]
         _, cfg = _raytraced_cfgs("headline", max_tries=2)

@@ -10,7 +10,9 @@ a seed: tries at 0, 1, 25 and 26 (``max_tries + 1``) and random within
 of both signs and 0, the pinhole (no weight counting) and the thin lens
 (no ``tir``), B = 0, 1 and ``16*128+77``.  Gates: weights and the four
 counters equal, ``dOdy``/``dDdy`` bit-equal.  Each model's kernel path
-calls ``epilogue_fused`` once a ``create_rays``; ``impl="jnp"`` never.
+runs the epilogue once a ``create_rays`` (the raytraced through
+``epilogue_fused``, the thin lens in its camera kernel's launch);
+``impl="jnp"`` never.
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ from zoic_tpu.models import common as jcommon
 
 import zoic_tpu_torch as zpt
 from zoic_tpu_torch.ops import epilogue_kernel as ek
+from zoic_tpu_torch.ops import trace_kernel as tk
 from _torch_threads import one_thread  # noqa: F401
 
 MAX_TRIES = 25
@@ -108,10 +111,12 @@ def _thinlens_state(**kw):
 
 @pytest.mark.parametrize("model", ["raytraced", "thinlens", "pinhole"])
 def test_kernel_path_calls_the_epilogue_once(model, monkeypatch):
-    """``create_rays``' kernel path runs the epilogue through
-    ``epilogue_fused`` exactly once, its counters as 0-d views of the
-    buffer it returned; ``impl="jnp"`` composes the plain pieces and never
-    calls it."""
+    """``create_rays``' kernel path runs the epilogue exactly once, its
+    counters as 0-d views of the buffer it returned: the raytraced model
+    through ``epilogue_fused``, the thin lens (and its pinhole) inside
+    ``trace_kernel.thinlens_rays``, its camera kernel's launch, with no
+    ``epilogue_fused`` call; ``impl="jnp"`` composes the plain pieces and
+    calls neither."""
     if model == "raytraced":
         cam = zpt.data.CAMERAS["headline"]
         cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
@@ -122,24 +127,31 @@ def test_kernel_path_calls_the_epilogue_once(model, monkeypatch):
         cfg, st = _thinlens_state(
             use_dof=model == "thinlens", optical_vignetting_distance=4.0,
             optical_vignetting_radius=0.6)
-    fused, calls = ek.epilogue_fused, []
+    fused, rays, calls, thin = ek.epilogue_fused, tk.thinlens_rays, [], []
 
     def counted(*a, **k):
         out = fused(*a, **k)
         calls.append((a[1] is None, k.get("count_weight", True), out[3]))
         return out
 
+    def counted_rays(*a, **k):
+        out = rays(*a, **k)
+        thin.append((True, k["use_dof"], out[5]))
+        return out
+
     monkeypatch.setattr(ek, "epilogue_fused", counted)
+    monkeypatch.setattr(tk, "thinlens_rays", counted_rays)
     rng = np.random.default_rng(3)
     s = [torch.from_numpy(rng.uniform(lo, 1, 300).astype(np.float32))
          for lo in (-1, -1, 0, 0)]
     for impl, n_calls in (("auto", 1), ("jnp", 0)):
-        del calls[:]
+        del calls[:], thin[:]
         c = dataclasses.replace(cfg, impl=impl)
-        rays, stats = zpt.create_rays(st, c, *s, seed=5)
-        assert len(calls) == n_calls, impl
+        _, stats = zpt.create_rays(st, c, *s, seed=5)
+        ran = calls if model == "raytraced" else thin
+        assert len(ran) == n_calls and len(calls + thin) == n_calls, impl
         if n_calls:
-            no_tir, count_weight, buf = calls[0]
+            no_tir, count_weight, buf = ran[0]
             assert no_tir == (model != "raytraced")
             assert count_weight == (model != "pinhole")
             for i, f in enumerate(COUNTERS):

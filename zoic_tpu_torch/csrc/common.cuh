@@ -1,5 +1,7 @@
 // Per-ray device functions shared by the port's camera kernels
-// (raytraced.cu, thinlens.cu).
+// (raytraced.cu, thinlens.cu), and the epilogue's weight, exposure and run
+// counters (epilogue.cu, and thinlens.cu's instance that writes finished
+// rays).
 //
 // Each mirrors, operation for operation, its PyTorch counterpart in
 // zoic_tpu_torch/ops/trace_kernel.py (_sin_poly, fast_sin, fast_cos,
@@ -114,6 +116,67 @@ __device__ __forceinline__ int64_t plane_cell(int i, int idx, int n_planes,
                       ((r - shift) & (tile_rows - 1));
   const int64_t pos = (row * kLanes + ((l - lsh) & (kLanes - 1))) % bp;
   return (int64_t)pidx * bp + pos;
+}
+
+// The epilogue (zoic_tpu_torch/ops/epilogue_kernel.py:epilogue_plain): the
+// exposure factors of e = *exposure, read on the card; 1 + e*e is a
+// multiply and an add and 1 / (1 + e*e) an IEEE division under
+// --fmad=false, as PyTorch rounds them.
+struct Exposure {
+  float e, up, down;
+};
+
+__device__ __forceinline__ Exposure exposure_factors(const float* exposure) {
+  const float e = *exposure;
+  const float one_plus = 1.0f + e * e;
+  return {e, one_plus, 1.0f / one_plus};
+}
+
+__device__ __forceinline__ float exposed(float w, const Exposure& x) {
+  return x.e > 0.0f ? w * x.up : (x.e < 0.0f ? w * x.down : w);
+}
+
+// The four run counters: successes, vignetted rays, the TIR sum and the
+// tries sum.
+struct Counts {
+  int ok = 0, vig = 0, tir = 0, tries = 0;
+};
+
+// One ray's weight from its tries t and TIR count r, its counters added to
+// c: 0 iff count_weight && t > max_tries, else 1, then the exposure.
+__device__ __forceinline__ float ray_weight(int t, int r, int max_tries,
+                                            bool count_weight,
+                                            const Exposure& x, Counts& c) {
+  const bool vig = count_weight && t > max_tries;
+  c.ok += count_weight && t <= max_tries;
+  c.vig += vig;
+  c.tir += r;
+  c.tries += t;
+  return exposed(vig ? 0.0f : 1.0f, x);
+}
+
+// Add every thread's counters to stats[4]: reduced within each warp
+// (__reduce_add_sync), added into the block's shared copy, and added to
+// stats with one atomicAdd a non-zero counter a block.  Every thread of
+// the block calls it, all 32 lanes of each warp.
+__device__ __forceinline__ void add_counts(const Counts& c, int* stats) {
+  const unsigned all = 0xffffffffu;
+  __shared__ int block_counts[4];
+  if (threadIdx.x < 4) block_counts[threadIdx.x] = 0;
+  __syncthreads();
+  const int ok = __reduce_add_sync(all, c.ok);
+  const int vig = __reduce_add_sync(all, c.vig);
+  const int tir_sum = __reduce_add_sync(all, c.tir);
+  const int tries_sum = __reduce_add_sync(all, c.tries);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&block_counts[0], ok);
+    atomicAdd(&block_counts[1], vig);
+    atomicAdd(&block_counts[2], tir_sum);
+    atomicAdd(&block_counts[3], tries_sum);
+  }
+  __syncthreads();
+  if (threadIdx.x < 4 && block_counts[threadIdx.x] != 0)
+    atomicAdd(&stats[threadIdx.x], block_counts[threadIdx.x]);
 }
 
 }  // namespace zoic

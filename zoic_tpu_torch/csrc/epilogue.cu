@@ -1,5 +1,7 @@
-// The epilogue of both camera models' kernel paths for Hopper (sm_90a):
+// The epilogue of the raytraced model's kernel path for Hopper (sm_90a):
 // weight, exposure, fake derivatives and the four run counters in one pass.
+// The thin lens's kernel path computes the same in its camera kernel's
+// final store (thinlens.cu, zoic_thinlens_rays_launch).
 //
 // Replaces no TPU kernel: the JAX package's create_rays is one jitted
 // program, and XLA fuses this epilogue into it after the Pallas call
@@ -44,40 +46,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace zoic;
 
 constexpr int kBlock = 256;
 constexpr int kTile = 128;  // rays a warp takes a step: four a lane
-
-struct Exposure {
-  float e, up, down;
-};
-
-__device__ __forceinline__ Exposure exposure_factors(const float* exposure) {
-  const float e = *exposure;
-  const float one_plus = 1.0f + e * e;
-  return {e, one_plus, 1.0f / one_plus};
-}
-
-__device__ __forceinline__ float exposed(float w, const Exposure& x) {
-  return x.e > 0.0f ? w * x.up : (x.e < 0.0f ? w * x.down : w);
-}
-
-struct Counts {
-  int ok = 0, vig = 0, tir = 0, tries = 0;
-};
-
-// One ray's weight and counters; its derivatives are written by the caller.
-__device__ __forceinline__ float ray(int t, int r, int max_tries,
-                                     bool count_weight, const Exposure& x,
-                                     Counts& c) {
-  const bool vig = count_weight && t > max_tries;
-  c.ok += count_weight && t <= max_tries;
-  c.vig += vig;
-  c.tir += r;
-  c.tries += t;
-  return exposed(vig ? 0.0f : 1.0f, x);
-}
 
 __global__ void __launch_bounds__(kBlock)
 epilogue_kernel(const int* __restrict__ tries, const int* __restrict__ tir,
@@ -102,10 +78,10 @@ epilogue_kernel(const int* __restrict__ tries, const int* __restrict__ tir,
     const int4 r4 = tir != nullptr ? reinterpret_cast<const int4*>(tir)[g]
                                    : make_int4(0, 0, 0, 0);
     reinterpret_cast<float4*>(weight)[g] = make_float4(
-        ray(t4.x, r4.x, max_tries, count_weight, x, c),
-        ray(t4.y, r4.y, max_tries, count_weight, x, c),
-        ray(t4.z, r4.z, max_tries, count_weight, x, c),
-        ray(t4.w, r4.w, max_tries, count_weight, x, c));
+        ray_weight(t4.x, r4.x, max_tries, count_weight, x, c),
+        ray_weight(t4.y, r4.y, max_tries, count_weight, x, c),
+        ray_weight(t4.z, r4.z, max_tries, count_weight, x, c),
+        ray_weight(t4.w, r4.w, max_tries, count_weight, x, c));
     // bit l of retried[k]: ray 4l + k of the tile was retried
     const unsigned retried[4] = {
         __ballot_sync(all, t4.x > 0), __ballot_sync(all, t4.y > 0),
@@ -138,8 +114,8 @@ epilogue_kernel(const int* __restrict__ tries, const int* __restrict__ tir,
   }
   for (int i = tiles * kTile + first; i < n; i += stride) {
     const int t = tries[i];
-    weight[i] = ray(t, tir != nullptr ? tir[i] : 0, max_tries, count_weight,
-                    x, c);
+    weight[i] = ray_weight(t, tir != nullptr ? tir[i] : 0, max_tries,
+                           count_weight, x, c);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const int64_t j = 3 * (int64_t)i + k;
@@ -148,22 +124,7 @@ epilogue_kernel(const int* __restrict__ tries, const int* __restrict__ tir,
     }
   }
 
-  __shared__ int block_counts[4];
-  if (threadIdx.x < 4) block_counts[threadIdx.x] = 0;
-  __syncthreads();
-  const int ok = __reduce_add_sync(all, c.ok);
-  const int vig = __reduce_add_sync(all, c.vig);
-  const int tir_sum = __reduce_add_sync(all, c.tir);
-  const int tries_sum = __reduce_add_sync(all, c.tries);
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(&block_counts[0], ok);
-    atomicAdd(&block_counts[1], vig);
-    atomicAdd(&block_counts[2], tir_sum);
-    atomicAdd(&block_counts[3], tries_sum);
-  }
-  __syncthreads();
-  if (threadIdx.x < 4 && block_counts[threadIdx.x] != 0)
-    atomicAdd(&stats[threadIdx.x], block_counts[threadIdx.x]);
+  add_counts(c, stats);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }

@@ -2,8 +2,10 @@
 eager path's aperture sampler and retry rounds, and the epilogue of both
 paths (weights, exposure, the fake derivatives and the run counters),
 whose pieces live beside its kernel in :mod:`..ops.epilogue_kernel`: the
-kernel path calls :func:`~..ops.epilogue_kernel.epilogue_fused`, the eager
-path composes :func:`weight_and_stats`, :func:`apply_exposure` and
+raytraced kernel path calls :func:`~..ops.epilogue_kernel.epilogue_fused`,
+the thin lens's kernel computes it in its final store
+(:func:`~..ops.trace_kernel.thinlens_rays`), and the eager path composes
+:func:`weight_and_stats`, :func:`apply_exposure` and
 :func:`fake_derivatives` itself.
 
 The reference's per-ray ``while (!ok && tries <= maxtries)`` resample loops

@@ -8,12 +8,11 @@ zoic.cpp:1297-1305) with retry rounds, and image bokeh.  As in the
 raytraced model, ``config.impl == "jnp"`` runs the exact eager path
 (tensor ops, masked resample rounds from :func:`common.resample_rounds`);
 anything else runs one kernel
-(:func:`zoic_tpu_torch.ops.trace_kernel.thinlens_fused`) on the flattened
+(:func:`zoic_tpu_torch.ops.trace_kernel.thinlens_rays`) on the flattened
 batch, with image bokeh after the aperture offsets are drawn by
-:func:`zoic_tpu_torch.bokeh.sample`.
-The weight, exposure, derivative and counter epilogue is one launch of
-:func:`zoic_tpu_torch.ops.epilogue_kernel.epilogue_fused` on the kernel
-path; the eager path composes its plain pieces (``models/common.py``).
+:func:`zoic_tpu_torch.bokeh.sample`.  That kernel also computes the
+weight, exposure, derivative and counter epilogue in its final store; the
+eager path composes the epilogue's plain pieces (``models/common.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ import torch
 from .. import bokeh as bokeh_mod
 from .. import optics
 from ..config import CameraConfig
-from ..ops import epilogue_kernel, trace_kernel
+from ..ops import trace_kernel
 from ..optics import V3
 from ..system import CameraState, RayBatch, RayStats
 from ..utils.profiling import span
@@ -189,10 +188,11 @@ def _create_rays_kernel(
                             device=sx.device).manual_seed(seed)
                     retry_u1, retry_u2 = retry_planes(
                         state, config, sx.shape[0], generator)
-    origin, direction, tries = trace_kernel.thinlens_fused(
+    # the pinhole keeps weight 1 and counts no successes
+    *rays, stats = trace_kernel.thinlens_rays(
         sx, sy, lensx, lensy,
         state.tan_fov, state.aperture_radius, state.focal_distance,
-        state.ov_distance, state.ov_radius, seed,
+        state.ov_distance, state.ov_radius, seed, state.exposure_control,
         use_dof=config.use_dof,
         has_ov=has_ov,
         max_tries=config.max_tries,
@@ -200,9 +200,4 @@ def _create_rays_kernel(
         retry_u1=retry_u1,
         retry_u2=retry_u2,
     )
-    # the pinhole keeps weight 1 and counts no successes
-    weight, d_ody, d_ddy, stats = epilogue_kernel.epilogue_fused(
-        tries, None, origin, direction, state.exposure_control,
-        config.max_tries, count_weight=config.use_dof)
-    return (RayBatch(origin, direction, weight, d_ody, d_ddy),
-            common.ray_stats(stats))
+    return RayBatch(*rays), common.ray_stats(stats)

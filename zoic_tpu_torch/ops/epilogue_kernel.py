@@ -1,5 +1,8 @@
-"""The epilogue of both camera models' kernel paths: the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""The epilogue of the raytraced model's kernel path: the CUDA kernel's
+wrapper and its plain PyTorch version.  The thin lens's kernel path
+computes the same in its camera kernel
+(:func:`..ops.trace_kernel.thinlens_rays`); :func:`epilogue_plain` is its
+plain version's second half.
 
 The JAX package computes it with jnp ops that XLA fuses into the jitted
 ``create_rays`` after the Pallas call (``zoic_tpu/models/common.py:
@@ -117,10 +120,16 @@ def _check(tries, tir, origin, direction, exposure):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous, got stride "
                              f"{t.stride()}")
+    return b, dev, exposure_on(exposure, dev)
+
+
+def exposure_on(exposure, dev: torch.device) -> Tensor:
+    """The exposure as a 0-d float32 tensor on ``dev``, the state's own
+    tensor when it is one; raises when it is not 0-d."""
     exposure = torch.as_tensor(exposure, dtype=torch.float32, device=dev)
     if exposure.dim() != 0:
         raise ValueError(f"exposure must be 0-d, got {tuple(exposure.shape)}")
-    return b, dev, exposure
+    return exposure
 
 
 def epilogue_fused(

@@ -36,7 +36,11 @@ pending ray's aperture point from the counter hash keyed by (ray id, seed,
 ``rnd``), or, with image bokeh, reads it from the presampled retry planes
 through :func:`retry_plane_index`.  :func:`thinlens_fused` launches
 ``csrc/thinlens.cu`` for CUDA tensors and runs :func:`thinlens_plain` for
-CPU tensors.
+CPU tensors.  :func:`thinlens_rays`, the thin-lens model's kernel path,
+launches the same kernel's second instance, which also computes the
+epilogue (weight, exposure, derivatives, counters) in its final store, and
+runs :func:`thinlens_rays_plain` (:func:`thinlens_plain`, then
+``epilogue_plain``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 from ..system import LensSystem
 from ..utils.profiling import span
 from . import _launch
+from .epilogue_kernel import epilogue_plain, exposure_on
 
 Tensor = torch.Tensor
 
@@ -58,6 +63,9 @@ Tensor = torch.Tensor
 launches = 0
 # launches of the CUDA kernel by thinlens_fused (plain CPU runs not counted)
 thinlens_launches = 0
+# launches of the CUDA kernel's instance that writes finished rays, by
+# thinlens_rays (plain CPU runs not counted)
+thinlens_rays_launches = 0
 
 # table capacities of csrc/raytraced.cu (its parameter and shared memory)
 MAX_ELEMS, MAX_KEYS, MAX_COEF = 64, 128, 32
@@ -985,19 +993,35 @@ _THINLENS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 5
                       + [ctypes.c_void_p])
 
 
+def _check_thin(sx, sy, u1, u2):
+    """Hold the thin-lens kernel's flat inputs to one device, float32, one
+    shape and contiguity; returns ``(B, device)``."""
+    return _launch.check_flat(
+        (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
+
+
+def _plane_args(b, dev, presampled, has_ov, retry_u1, retry_u2):
+    """The retry planes' arguments of a thin-lens launch: ``(bu1 pointer,
+    bu2 pointer, n_planes, bp, tile_rows, plane_tiles, reuse)``, null and
+    zeros unless ``presampled`` and ``has_ov``; and the planes themselves,
+    to be kept until the launch."""
+    if not (presampled and has_ov):
+        return (None, None, 0, 0, 0, 0, 0), ()
+    bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
+    n_planes, bp = bu1.shape
+    tile_rows, plane_tiles, reuse = retry_plane_layout(b, bp)
+    return ((bu1.data_ptr(), bu2.data_ptr(), n_planes, bp, tile_rows,
+             plane_tiles, int(reuse)), (bu1, bu2))
+
+
 def _thinlens_launch(sx, sy, u1, u2, scalars, seed, *, use_dof, has_ov,
                      max_tries, presampled, retry_u1, retry_u2, count=False):
     """Check, allocate and launch ``csrc/thinlens.cu`` (its lane-counting
     build with ``count``); returns ``(origin, dir, tries)``."""
     seed = _check_seed(seed)
-    b, dev = _launch.check_flat(
-        (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
-    bu1 = bu2 = None
-    n_planes = bp = tile_rows = plane_tiles = reuse = 0
-    if presampled and has_ov:
-        bu1, bu2 = _device_planes(retry_u1, retry_u2, dev)
-        n_planes, bp = bu1.shape
-        tile_rows, plane_tiles, reuse = retry_plane_layout(b, bp)
+    b, dev = _check_thin(sx, sy, u1, u2)
+    (bu1, bu2, *layout), _planes = _plane_args(
+        b, dev, presampled, has_ov, retry_u1, retry_u2)
     origin, direction, tries = _launch.empty(
         dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
         ((b,), torch.int32))
@@ -1007,12 +1031,10 @@ def _thinlens_launch(sx, sy, u1, u2, scalars, seed, *, use_dof, has_ov,
                       defines=(_launch.COUNT_DEFINE,) if count else ())
     _launch.launch(
         fn, "thinlens", dev,
-        sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-        bu1.data_ptr() if bu1 is not None else None,
-        bu2.data_ptr() if bu2 is not None else None,
+        sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(), bu1, bu2,
         *scalars, origin.data_ptr(), direction.data_ptr(), tries.data_ptr(),
         b, int(use_dof), int(has_ov), int(presampled), max_tries + 1,
-        seed, n_planes, bp, tile_rows, plane_tiles, int(reuse),
+        seed, *layout,
     )
     return origin, direction, tries
 
@@ -1066,3 +1088,124 @@ def thinlens_lane_use(
                          ov_distance, ov_radius), seed, count=True, **flags)
     lanes, warps = _launch.read_counts("thinlens", 2)
     return out, {"attempts": lanes, "warp_attempts": warps}
+
+
+# ------------------------------------- the thin lens's whole kernel path
+
+# threads of a block of csrc/thinlens.cu (kBlock), and the rays a warp of
+# its finished rays' instance takes a step (kTile)
+THINLENS_BLOCK = 256
+THINLENS_TILE = 128
+
+_THINLENS_RAYS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 5
+                           + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+                           + [ctypes.c_void_p])
+
+
+def thinlens_grid(b: int, sm_count: int, blocks_per_sm: int) -> int:
+    """Blocks of :func:`thinlens_rays`' grid for ``b`` rays: as many as the
+    card holds at once (``sm_count * blocks_per_sm``), so that few blocks
+    add to the counters, but no more than give each warp a tile, and at
+    least one."""
+    step = THINLENS_BLOCK // 32 * THINLENS_TILE
+    return max(1, min(sm_count * blocks_per_sm, -(-b // step)))
+
+
+# device index -> (SMs, blocks per SM of the instance)
+_RAYS_BLOCKS_PER_SM: dict = {}
+
+
+def _rays_grid(b: int, dev) -> int:
+    """:func:`thinlens_grid` on ``dev``: the instance's blocks per SM, asked
+    of the library once, times the card's SMs."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    hit = _RAYS_BLOCKS_PER_SM.get(index)
+    if hit is None:
+        with span("zoic.kernel.load"):
+            fn = _launch.bind("thinlens", "zoic_thinlens_rays_blocks_per_sm",
+                              [])
+            with torch.cuda.device(index):
+                per_sm = fn()
+            if per_sm < 1:
+                raise RuntimeError(
+                    f"thinlens kernel: the occupancy query failed ({per_sm})")
+            sms = torch.cuda.get_device_properties(
+                index).multi_processor_count
+            hit = _RAYS_BLOCKS_PER_SM[index] = (sms, per_sm)
+    return thinlens_grid(b, *hit)
+
+
+def thinlens_rays_plain(
+    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
+    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int,
+    exposure: Tensor, *, use_dof: bool, has_ov: bool, max_tries: int,
+    presampled: bool = False, retry_u1: Optional[Tensor] = None,
+    retry_u2: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of :func:`thinlens_rays` on any device:
+    :func:`thinlens_plain`, then ``epilogue_plain`` on its rays (no tir;
+    the weight counted with depth of field, the pinhole's kept 1).  Returns
+    ``(origin[B,3], dir[B,3], weight[B], d_ody[B,3], d_ddy[B,3], stats
+    i32[4])``."""
+    origin, direction, tries = thinlens_plain(
+        sx, sy, u1, u2, tan_fov, aperture_radius, focal_distance, ov_distance,
+        ov_radius, seed, use_dof=use_dof, has_ov=has_ov, max_tries=max_tries,
+        presampled=presampled, retry_u1=retry_u1, retry_u2=retry_u2)
+    weight, d_ody, d_ddy, stats = epilogue_plain(
+        tries, None, origin, direction, exposure, max_tries,
+        count_weight=use_dof)
+    return origin, direction, weight, d_ody, d_ddy, stats
+
+
+def thinlens_rays(
+    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
+    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int,
+    exposure: Tensor, *, use_dof: bool, has_ov: bool, max_tries: int,
+    presampled: bool = False, retry_u1: Optional[Tensor] = None,
+    retry_u2: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The thin lens's finished rays over flat ``[B]`` inputs, as
+    :func:`thinlens_fused` and ``epilogue_fused`` give them in turn, in one
+    launch.
+
+    ``exposure`` is the state's 0-d exposure tensor.  Returns
+    ``(origin[B,3], dir[B,3], weight[B], d_ody[B,3], d_ddy[B,3], stats
+    i32[4])``, ``stats`` holding success, vignetted, tir (0) and
+    tries_total.  The inputs are held to one device, float32, one shape
+    and contiguity on every device.  CUDA tensors launch the instance of
+    ``csrc/thinlens.cu`` that writes finished rays (the counter buffer
+    zeroed, then the kernel: no pass reads the rays back), which reads the
+    exposure on the card; CPU tensors run :func:`thinlens_rays_plain`."""
+    global thinlens_rays_launches
+    with span("zoic.thinlens"):
+        scal = (tan_fov, aperture_radius, focal_distance, ov_distance,
+                ov_radius)
+        flags = dict(use_dof=use_dof, has_ov=has_ov, max_tries=max_tries,
+                     presampled=presampled, retry_u1=retry_u1,
+                     retry_u2=retry_u2)
+        seed = _check_seed(seed)
+        b, dev = _check_thin(sx, sy, u1, u2)
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        exposure = exposure_on(exposure, dev)
+        if dev.type == "cpu":
+            return thinlens_rays_plain(sx, sy, u1, u2, *scal, seed, exposure,
+                                       **flags)
+        (bu1, bu2, *layout), _planes = _plane_args(
+            b, dev, presampled, has_ov, retry_u1, retry_u2)
+        out = _launch.empty(
+            dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
+            ((b,), torch.float32), ((b, 3), torch.float32),
+            ((b, 3), torch.float32), ((4,), torch.int32))
+        _launch.launch(
+            _launch.bind("thinlens", "zoic_thinlens_rays_launch",
+                         _THINLENS_RAYS_ARGTYPES),
+            "thinlens", dev,
+            sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(), bu1,
+            bu2, *thinlens_scalars(*scal), exposure.data_ptr(),
+            *(t.data_ptr() for t in out), b, int(use_dof), int(has_ov),
+            int(presampled), max_tries + 1, seed, *layout, _rays_grid(b, dev),
+        )
+        if b > 0:
+            thinlens_rays_launches += 1
+        return out
