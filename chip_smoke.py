@@ -78,15 +78,15 @@ Phases, one line each: the device; the kernel builds (eight ``nvcc``
 runs in parallel: six sources, the two camera kernels' counting builds);
 then per camera the run through ``create_rays`` checked for launches (a
 raytraced camera: one camera kernel and one epilogue; a thin lens: one
-launch of its kernel's instance that writes finished rays, and no
-epilogue), finite outputs and its run counters, the
-kernel against its plain PyTorch version on the same inputs, the
-epilogue kernel (weight, exposure, fake derivatives and the four counters
-in one pass) against its plain version on that kernel's outputs bit for
-bit (also at exposure +-0.5, with tries at ``max_tries + 1``, and on the
-ragged batches), a thin lens's finished rays' instance against its plain
-version (the camera kernel's, then the epilogue's) bit for bit at its
-exposure and at +-0.5, and timings with
+launch of its kernel, which writes finished rays, and no epilogue),
+finite outputs and its run counters, the kernel against its plain PyTorch
+version on the same inputs (the raytraced camera's epilogue kernel, which
+computes weight, exposure, fake derivatives and the four counters in one
+pass, against its plain version on that kernel's outputs bit for bit,
+also at exposure +-0.5, with tries at ``max_tries + 1``, and on the
+ragged batches; the thin-lens kernel against its plain version, the
+camera kernel's then the epilogue's, bit for bit at its exposure and at
++-0.5), and timings with
 CUDA events and, for the kernel's own time on the card, torch.profiler,
 with the call's device time split per kernel (a profiler reading is used
 only where its window kept one record per call and events >= card >=
@@ -106,9 +106,8 @@ examples (per lens the compile's seconds, the render's time, vignetting,
 the tape's segments and the coverage; the optimisation's losses); the
 entry points (shapes, launches, the dry run's counters).  Then the
 summary line (with the profiler readings taken and rejected), one JSON
-line of the kernel table (eight entries: the six sources, the bokeh
-source's plane entry and the thin-lens source's finished rays' instance
-apart), the card's name and power limit from
+line of the kernel table (seven entries: the six sources and the bokeh
+source's plane entry apart), the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before the last line.
 It needs a CUDA card and ``nvcc``, and imports nothing of jax.
 """
@@ -480,7 +479,6 @@ def reset_counts(trace_kernel, bokeh_kernel, roofline_kernel=None) -> None:
 
     epilogue_kernel.launches = 0
     trace_kernel.launches = 0
-    trace_kernel.thinlens_launches = 0
     trace_kernel.thinlens_rays_launches = 0
     bokeh_kernel.launches = 0
     bokeh_kernel.plane_launches = 0
@@ -547,7 +545,7 @@ def kernel_vs_plain(trace_kernel, name, args, kw, max_tries, tag, limit):
 
 
 def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
-                      max_tries, count_weight, tag, smi=None):
+                      max_tries, tag, smi=None):
     """The epilogue kernel against its plain version on one phase's camera
     kernel outputs, bit for bit (the weight, both derivatives, the four
     counters): at the state's exposure, at +0.5 and -0.5, and with every
@@ -566,12 +564,11 @@ def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
                torch.tensor(e, dtype=torch.float32, device=dev))
               for e in (0.5, -0.5)]
     cases.append(("tries max_tries + 1 on every 7th ray", over, exposure))
-    kw = dict(count_weight=count_weight)
     worst, stats, outs = 0.0, {}, []
     for label, t, ex in cases:
         args = (t, tir, origin, direction, ex, max_tries)
-        k = ek.epilogue_fused(*args, **kw)
-        p = ek.epilogue_plain(*args, **kw)
+        k = ek.epilogue_fused(*args)
+        p = ek.epilogue_plain(*args)
         torch.cuda.synchronize()
         if t.numel():
             worst = max([worst] + [float((a - b).abs().max())
@@ -583,7 +580,7 @@ def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
         outs.append(k)
     first = outs[0]
     again = ek.epilogue_fused(tries, tir, origin, direction, exposure,
-                              max_tries, **kw)
+                              max_tries)
     check(bits_equal(again, first),
           f"{name}: two epilogue launches on the same inputs differ")
     out = {"max_abs_err": worst}
@@ -594,13 +591,12 @@ def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
         args = (tries, tir, origin, direction, exposure, max_tries)
 
         def fused():
-            return ek.epilogue_fused(*args, **kw)
+            return ek.epilogue_fused(*args)
 
         timed = {"kernel": time_ms(fused, lambda: ()),
-                 "plain": time_ms(lambda: ek.epilogue_plain(*args, **kw),
+                 "plain": time_ms(lambda: ek.epilogue_plain(*args),
                                   lambda: ())}
-        n_bytes = (nbytes(tries, origin, direction, exposure, *first)
-                   + (nbytes(tir) if tir is not None else 0))
+        n_bytes = nbytes(tries, tir, origin, direction, exposure, *first)
         ep_bound = bound(n_bytes, EPILOGUE_OPS_PER_RAY * tries.numel())
         kernel_ms = statistics.median(timed["kernel"])
         dev_ms = card_reading(fused, "epilogue_kernel", kernel_ms,
@@ -617,15 +613,13 @@ def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
     return out
 
 
-def rays_vs_plain(trace_kernel, name, args, kw, exposure, tag, smi=None):
-    """The thin lens's whole kernel path (``thinlens_rays``, the camera
-    kernel's instance that writes finished rays) against its plain version
-    (``thinlens_rays_plain``: the camera kernel's plain version, then the
-    epilogue's) bit for bit, every output and the four counters: at the
-    state's exposure and at +0.5 and -0.5; two launches must give the same
-    bits.  With ``smi`` also its time by CUDA events and on the card beside
-    the plain version's and its byte bound (16 B in, 52 B out a ray).
-    Prints one line under ``tag``."""
+def rays_vs_plain(trace_kernel, name, args, kw, exposure, tag):
+    """The thin lens's whole kernel path (``thinlens_rays``) against its
+    plain version (``thinlens_rays_plain``: the camera kernel's plain
+    version, then the epilogue's) bit for bit, every output and the four
+    counters: at the state's exposure and at +0.5 and -0.5; two launches
+    must give the same bits.  Prints one line under ``tag``; returns the
+    first case's outputs."""
     dev = args[0].device
     cases = [("the state's exposure", exposure)] + [
         (f"exposure {e:+}", torch.tensor(e, dtype=torch.float32, device=dev))
@@ -636,41 +630,18 @@ def rays_vs_plain(trace_kernel, name, args, kw, exposure, tag, smi=None):
         p = trace_kernel.thinlens_rays_plain(*args, ex, **kw)
         torch.cuda.synchronize()
         stats[label] = k[5].tolist()
-        check(bits_equal(k, p), f"{name}: the finished rays' instance and "
-              f"its plain version differ ({label}): stats {k[5].tolist()} "
-              f"vs {p[5].tolist()}")
+        check(bits_equal(k, p), f"{name}: the thin-lens kernel and its "
+              f"plain version differ ({label}): stats {k[5].tolist()} vs "
+              f"{p[5].tolist()}")
         first = first or k
     again = trace_kernel.thinlens_rays(*args, exposure, **kw)
     check(bits_equal(again, first),
-          f"{name}: two launches of the finished rays' instance differ")
-    out = {"max_abs_err": 0.0}
-    line = (f"[{tag}] B = {args[0].numel()}: origin, dir, weight, dOdy, "
-            f"dDdy and the counters bit-equal to the plain version in "
-            f"{len(cases)} cases (stats {stats}); two launches bit-equal")
-    if smi is not None:
-        def fused():
-            return trace_kernel.thinlens_rays(*args, exposure, **kw)
-
-        timed = {"kernel": time_ms(fused, lambda: ()),
-                 "plain": time_ms(lambda: trace_kernel.thinlens_rays_plain(
-                     *args, exposure, **kw), lambda: ())}
-        n = args[0].numel()
-        n_bytes = nbytes(*args[:4], *first[:5])
-        rays_bound = bound(n_bytes, (THINLENS_OPS_PER_RAY
-                                     + EPILOGUE_OPS_PER_RAY) * n)
-        kernel_ms = statistics.median(timed["kernel"])
-        dev_ms = card_reading(fused, "thinlens_kernel<true>", kernel_ms,
-                              rays_bound[0], tag)
-        out.update(kernel_ms=kernel_ms, device_ms=dev_ms,
-                   plain_ms=statistics.median(timed["plain"]),
-                   bytes=n_bytes, bound=rays_bound)
-        line += (f"; median of 10 (3 warm-up), on {smi}: "
-                 + median_line(timed) + f"; kernel on the card "
-                 f"{card_text(dev_ms)} (profiler, {PROFILED_CALLS} launches; "
-                 f"bound {rays_bound[0]:.4f} ms, {rays_bound[1]}, "
-                 f"{n_bytes / n:.0f} B/ray)")
-    print(line, flush=True)
-    return out
+          f"{name}: two launches of the thin-lens kernel differ")
+    print(f"[{tag}] B = {args[0].numel()}: origin, dir, weight, dOdy, "
+          f"dDdy and the counters bit-equal to the plain version in "
+          f"{len(cases)} cases (stats {stats}); two launches bit-equal",
+          flush=True)
+    return first
 
 
 def fresh_inputs(state, cfg, tg: torch.Generator, dev):
@@ -715,7 +686,7 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     n_planes, n_epilogue = bokeh_kernel.plane_launches, ek.launches
     check(n_launch > 0, f"{name}: no raytraced kernel launch")
     check(n_epilogue == 1, f"{name}: {n_epilogue} epilogue launches")
-    check(trace_kernel.thinlens_launches == 0,
+    check(trace_kernel.thinlens_rays_launches == 0,
           f"{name}: a thinlens kernel launched")
     check(n_bokeh == int(cfg.use_image),
           f"{name}: {n_bokeh} bokeh launches with use_image={cfg.use_image}")
@@ -756,7 +727,7 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     ko, kd, kt, ktir = cmp["out"]
     max_abs_err, mismatch = cmp["max_abs_err"], cmp["mismatches"]
     epi = epilogue_vs_plain(
-        name, kt, ktir, ko, kd, state.exposure_control, cfg.max_tries, True,
+        name, kt, ktir, ko, kd, state.exposure_control, cfg.max_tries,
         tags[1].replace("kernel vs plain", "epilogue vs plain"),
         smi if headline else None)
 
@@ -805,11 +776,9 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
 def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
                    tag):
     """Drive one thin-lens config through compile_camera + create_rays
-    (one launch of the kernel's instance that writes finished rays, no
-    epilogue), check the run, hold the camera kernel, the epilogue kernel
-    and the instance that writes finished rays against their plain
-    versions on the same inputs, and time kernel, plain and create_rays
-    (and the epilogue and the finished rays' instance on thinlens_f1.4)."""
+    (one launch of the thin-lens kernel, no epilogue), check the run, hold
+    the kernel against its plain version on the same inputs, and time
+    kernel, plain and create_rays."""
     from zoic_tpu_torch.models import thinlens as thin_model
     from zoic_tpu_torch.ops import epilogue_kernel as ek
 
@@ -823,10 +792,7 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     n_rays, n_bokeh = (trace_kernel.thinlens_rays_launches,
                        bokeh_kernel.launches)
     n_epilogue = ek.launches
-    check(n_rays == 1, f"{name}: {n_rays} launches of the finished rays' "
-          "instance")
-    check(trace_kernel.thinlens_launches == 0,
-          f"{name}: the camera kernel's first instance launched")
+    check(n_rays == 1, f"{name}: {n_rays} launches of the thin-lens kernel")
     check(n_epilogue == 0, f"{name}: {n_epilogue} epilogue launches")
     check(trace_kernel.launches == 0, f"{name}: a raytraced kernel launched")
     check((n_bokeh > 0) == cfg.use_image,
@@ -867,29 +833,9 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
             state.focal_distance, state.ov_distance, state.ov_radius, seed)
     kw = dict(use_dof=cfg.use_dof, has_ov=has_ov, max_tries=cfg.max_tries,
               presampled=cfg.use_image, **planes)
-    ko, kd, kt = trace_kernel.thinlens_fused(*args, **kw)
-    n_thin = trace_kernel.thinlens_launches
-    po, pd, pt = trace_kernel.thinlens_plain(*args, **kw)
-    torch.cuda.synchronize()
-    mismatch = int((kt != pt).sum())
-    same = (kt == pt) & (kt <= cfg.max_tries)
-    err = max(float((ko - po)[same].abs().max()),
-              float((kd - pd)[same].abs().max()))
-    err_all = max(float((ko - po).abs().max()), float((kd - pd).abs().max()))
-    print(f"[{tag}b {name} kernel vs plain] tries mismatches {mismatch} of "
-          f"{BATCH} (limit {MAX_TRIES_MISMATCH}); live max |d| {err:.3e} "
-          f"(limit {PAYLOAD_ATOL}); all rays {err_all:.3e}", flush=True)
-    check(mismatch <= MAX_TRIES_MISMATCH, f"{name}: kernel and plain "
-          "disagree on tries")
-    check(err <= PAYLOAD_ATOL, f"{name}: kernel and plain payloads disagree")
-    epi = epilogue_vs_plain(
-        name, kt, None, ko, kd, state.exposure_control, cfg.max_tries,
-        cfg.use_dof, f"{tag}b {name} epilogue vs plain",
-        smi if name == "thinlens_f1.4" else None)
-    fold = rays_vs_plain(trace_kernel, name, args, kw,
-                         state.exposure_control,
-                         f"{tag}b {name} finished rays vs plain",
-                         smi if name == "thinlens_f1.4" else None)
+    ex = state.exposure_control
+    first = rays_vs_plain(trace_kernel, name, args, kw, ex,
+                          f"{tag}b {name} kernel vs plain")
 
     # timings (information only), fresh draws and seed per call
     tg = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -899,28 +845,30 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
         a, b, c, d = draws(tg, BATCH, dev)
         if cfg.use_image:
             c, d = bokeh_kernel.sample_fused(state.bokeh, c, d)
-        return (a, b, c, d, *args[4:9], s)
+        return (a, b, c, d, *args[4:9], s, ex)
 
     def e2e_args():
         return (*draws(tg, BATCH, dev),
                 int(torch.randint(0, 1 << 22, (), generator=tg, device=dev)))
 
     timed = {
-        "kernel": time_ms(lambda *a: trace_kernel.thinlens_fused(*a, **kw),
+        "kernel": time_ms(lambda *a: trace_kernel.thinlens_rays(*a, **kw),
                           fresh),
-        "plain": time_ms(lambda *a: trace_kernel.thinlens_plain(*a, **kw),
-                         fresh),
+        "plain": time_ms(
+            lambda *a: trace_kernel.thinlens_rays_plain(*a, **kw), fresh),
         "create_rays": time_ms(
             lambda *a: zt.create_rays(state, cfg, *a[:4], seed=a[4],
                                       generator=tg), e2e_args),
     }
     # the pinhole reads no lens samples
-    n_bytes = nbytes(*args[:4 if cfg.use_dof else 2], ko, kd, kt,
+    n_bytes = nbytes(*args[:4 if cfg.use_dof else 2], *first[:5],
                      *planes.values())
-    thin_bound = bound(n_bytes, THINLENS_OPS_PER_RAY * BATCH)
+    thin_bound = bound(n_bytes,
+                       (THINLENS_OPS_PER_RAY + EPILOGUE_OPS_PER_RAY) * BATCH)
     dev_ms = card_reading(
-        lambda: trace_kernel.thinlens_fused(*args, **kw), "thinlens_kernel",
-        statistics.median(timed["kernel"]), thin_bound[0], f"{tag}c")
+        lambda: trace_kernel.thinlens_rays(*args, ex, **kw),
+        "thinlens_kernel", statistics.median(timed["kernel"]),
+        thin_bound[0], f"{tag}c")
     split = card_reading(
         lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed,
                                generator=g), "thinlens_kernel",
@@ -929,13 +877,11 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     print(f"[{tag}c {name} timing] median of 10 (3 warm-up), B = {BATCH}, "
           f"on {smi}: " + median_line(timed) + f"; kernel on the card "
           f"{card_text(dev_ms)} (profiler, {PROFILED_CALLS} launches; bound "
-          f"{thin_bound[0]:.4f} ms, {thin_bound[1]}); "
+          f"{thin_bound[0]:.4f} ms, {thin_bound[1]}, "
+          f"{n_bytes / BATCH:.0f} B/ray); "
           + split_text(split, "thinlens_kernel"), flush=True)
-    return {"thinlens_launches": n_thin, "bokeh_launches": n_bokeh,
-            "rays_launches": n_rays, "rays": fold,
-            "epilogue_launches": n_epilogue, "epilogue": epi,
-            "split": split,
-            "bytes": n_bytes, "bound": thin_bound, "max_abs_err": err,
+    return {"bokeh_launches": n_bokeh, "launches": n_rays, "split": split,
+            "bytes": n_bytes, "bound": thin_bound, "max_abs_err": 0.0,
             "kernel_ms": statistics.median(timed["kernel"]),
             "device_ms": dev_ms,
             "plain_ms": statistics.median(timed["plain"]),
@@ -1133,7 +1079,7 @@ def ragged_phase(zt, trace_kernel, name, state, cfg, sizes, dev, tag):
               f"{name}: kernel and plain payloads disagree at B = {n}")
         epi_err = max(epi_err, epilogue_vs_plain(
             name, kt, ktir, ko, kd, state.exposure_control, cfg.max_tries,
-            True, f"{tag} {name} epilogue vs plain")["max_abs_err"])
+            f"{tag} {name} epilogue vs plain")["max_abs_err"])
     print(f"[{tag} {name} ragged batches] B = {', '.join(map(str, sizes))}: "
           f"tries/tir equal to the plain version's, live max |d| "
           f"{worst:.3e} (limit {PAYLOAD_ATOL}); the epilogue bit-equal",
@@ -1231,13 +1177,15 @@ def circles_phase(zt, dev, smi, tag):
     """The pre-check's circle fit on the headline's fit cover at the
     compile's shapes (32 keys x ``CIRCLES_N`` samples, traced on the card
     as the compile traces them): the kernel path of ``fit_circles`` and of
-    the smoothing's ``reach_at`` bit-equal to the numpy fit, the fit's two
-    entries, the whole kernel-path fit and the numpy fit timed on the host
-    clock (each ends in its read-back), and the three kernels' time on the
-    card by torch.profiler, beside the bound: the reach's and the pick's
-    FP64 operations (a subtract, a multiply, an add an (accepted sample,
-    centre) and a (subsampled sample, centre)) at ``FP64_OPS_PER_S``, or
-    the traces' bytes, whichever is larger."""
+    the smoothing's ``reach_at`` bit-equal to their plain route
+    (``fit_circles`` on CPU copies, whose reductions are ``reach_plain``
+    and ``pick_plain``; ``reach_at_plain``), the fit's two entries, the
+    whole kernel-path fit, the plain fit and its two reductions timed on
+    the host clock (each ends in its read-back), and the three kernels'
+    time on the card by torch.profiler, beside the bound: the reach's and
+    the pick's FP64 operations (a subtract, a multiply, an add an
+    (accepted sample, centre) and a (subsampled sample, centre)) at
+    ``FP64_OPS_PER_S``, or the traces' bytes, whichever is larger."""
     from zoic_tpu_torch import pupil
     from zoic_tpu_torch.ops import circles_kernel as ck
 
@@ -1247,11 +1195,12 @@ def circles_phase(zt, dev, smi, tag):
     u = torch.rand((2, keys.shape[0], CIRCLES_N), generator=g, device=dev)
     lx, ly, ok = (t.contiguous() for t in pupil._cover_trace(
         st.lens, keys, u, "disk"))
-    lxn, lyn, okn = (t.cpu().numpy() for t in (lx, ly, ok))
+    lxc, lyc, okc = (t.cpu() for t in (lx, ly, ok))
+    okn = okc.numpy()
     n_keys = okn.shape[0]
     before = ck.launches
     got = ck.fit_circles(lx, ly, ok)
-    want, plain_s = seconds(lambda: pupil._fit_circles_np(lxn, lyn, okn))
+    want, plain_s = seconds(lambda: ck.fit_circles(lxc, lyc, okc))
     centres = np.stack([got[0], got[2]], 1)
     m2 = ck.reach_at(lx, ly, ok, centres)
     check(ck.launches == before + 3, "the circle fit and the smoothing's "
@@ -1263,12 +1212,12 @@ def circles_phase(zt, dev, smi, tag):
                    for x, y in zip(a, b))
 
     fit_equal = same(got, want)
-    reach_equal = same([m2], [pupil._reach_np(lxn, lyn, okn, centres)])
+    reach_equal = same([m2], [ck.reach_at_plain(lxc, lyc, okc, centres)])
     check(fit_equal and reach_equal, f"circle fit kernel path: fit "
           f"bit-equal {fit_equal}, smoothing reach bit-equal {reach_equal}")
-    cand = np.linspace(-3.0, 3.0, pupil._CIRCLE_CENTERS)
+    cand = np.linspace(-3.0, 3.0, ck.CIRCLE_CENTERS)
     negi, posi = np.where(cand <= 0.0)[0], np.where(cand >= 0.0)[0]
-    stride = max(1, CIRCLES_N // pupil._CIRCLE_SEL_SAMPLES)
+    stride = max(1, CIRCLES_N // ck.CIRCLE_SEL_SAMPLES)
     cand_t = torch.from_numpy(cand).to(dev)
     rk = np.sqrt(np.maximum(ck.reach(lx, ly, ok, cand_t), 0.0)) * 1.01 + 0.005
     calls = {
@@ -1283,7 +1232,12 @@ def circles_phase(zt, dev, smi, tag):
         host_ms[name] = statistics.median(
             seconds(fn)[1] * 1e3 for _ in range(CIRCLES_ITERS))
     plain_ms = min(plain_s, seconds(
-        lambda: pupil._fit_circles_np(lxn, lyn, okn))[1]) * 1e3
+        lambda: ck.fit_circles(lxc, lyc, okc))[1]) * 1e3
+    plain_entries_ms = {
+        "reach_plain": seconds(lambda: ck.reach_plain(
+            lxc, lyc, okc, torch.from_numpy(cand)))[1] * 1e3,
+        "pick_plain": seconds(lambda: ck.pick_plain(
+            lxc, lyc, rk ** 2, cand, negi, posi, stride))[1] * 1e3}
     records, _ = profile_window(calls["fit"], host=False)
     names = ("reach_kernel", "bits_kernel", "pair_kernel")
     card_us = {k: sum(r[1] for r in records if k in r[0]) / PROFILED_CALLS
@@ -1300,11 +1254,13 @@ def circles_phase(zt, dev, smi, tag):
     bound_ms, bound_by = max((by_ops, "operations"), (by_bytes, "bytes"))
     print(f"[{tag} circles] headline fit cover, {n_keys} keys x {CIRCLES_N} "
           f"samples, {accepted} accepted, pick stride {stride}: the kernel "
-          f"path bit-equal to the numpy fit and the smoothing's reach; host "
+          f"path bit-equal to the plain fit and the smoothing's reach; host "
           f"ms (median of {CIRCLES_ITERS}, read-backs in) fit "
           f"{host_ms['fit']:.3f}, reach {host_ms['reach']:.3f}, pick "
           f"{host_ms['pick']:.3f}, smoothing reach {host_ms['reach_at']:.3f};"
-          f" numpy fit {plain_ms:.1f} ms; card "
+          f" plain fit {plain_ms:.1f} ms (reach_plain "
+          f"{plain_entries_ms['reach_plain']:.1f}, pick_plain "
+          f"{plain_entries_ms['pick_plain']:.1f} over every key); card "
           + (f"{card_ms:.4f} ms a fit (" + ", ".join(
               f"{k} {v:.1f} us" for k, v in card_us.items()) + ")"
              if card_ms is not None else
@@ -1313,7 +1269,8 @@ def circles_phase(zt, dev, smi, tag):
           + f"; bound {bound_ms:.4f} ms ({bound_by}: {ops:.4g} FP64 "
           f"operations, {by_bytes:.4f} ms of bytes); on {smi}", flush=True)
     return {"ms": host_ms["fit"], "entries_ms": host_ms, "device_ms": card_ms,
-            "card_us": card_us, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "card_us": card_us, "plain_ms": plain_ms,
+            "plain_entries_ms": plain_entries_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": 0.0}
 
 
@@ -1430,7 +1387,7 @@ def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
           f"bench spread = {res['spread']}")
     print(f"[{tag} bench] {' '.join(BENCH_ARGS)}: {bench.BURSTS} bursts, "
           f"spread {res['spread']:.2%}; launches raytraced {n_rt}, "
-          f"roofline {n_roof}, thinlens {trace_kernel.thinlens_launches}, "
+          f"roofline {n_roof}, thinlens {trace_kernel.thinlens_rays_launches}, "
           f"bokeh {bokeh_kernel.launches}", flush=True)
     return {"launches": n_roof, "raytraced_launches": n_rt, "result": res}
 
@@ -1439,8 +1396,7 @@ def counts(trace_kernel, bokeh_kernel, rk) -> dict:
     from zoic_tpu_torch.ops import epilogue_kernel
 
     return {"raytraced": trace_kernel.launches,
-            "thinlens": trace_kernel.thinlens_launches,
-            "thinlens_rays": trace_kernel.thinlens_rays_launches,
+            "thinlens": trace_kernel.thinlens_rays_launches,
             "bokeh": bokeh_kernel.launches,
             "bokeh_planes": bokeh_kernel.plane_launches,
             "roofline": rk.launches,
@@ -1589,8 +1545,7 @@ def camera_phase(zt, kernels, bokeh_path, dev, smi, tag):
         oc = counts(trace_kernel, bokeh_kernel, rk)
         add_counts(launched, oc)
         check_rays(name, orays, ostats, BATCH)
-        kernel = ("thinlens_rays" if name.startswith("thin")
-                  else "raytraced")
+        kernel = "thinlens" if name.startswith("thin") else "raytraced"
         check(oc[kernel] > 0 and oc["bokeh"] > 0,
               f"{name}: launches {oc}")
         if kernel == "raytraced":
@@ -1885,7 +1840,7 @@ def diag_phase(zt, kernels, bokeh_path, dev, smi, tag):
         c = counts(trace_kernel, bokeh_kernel, rk)
         add_counts(launched, c)
         raytraced = cfg.lens_model is zt.LensModel.RAYTRACED
-        kernel = "raytraced" if raytraced else "thinlens_rays"
+        kernel = "raytraced" if raytraced else "thinlens"
         check(c[kernel] == len(seeds) and (c["bokeh"] > 0) == cfg.use_image,
               f"{name} draw mode: launches {c}")
         check(len(cam._draw_segments) == len(seeds),
@@ -2283,9 +2238,8 @@ def main(argv=None) -> None:
         thin[name] = thinlens_phase(zt, trace_kernel, bokeh_kernel, name,
                                     tcfg, dev, smi, f"{7 + i}")
     print("[11s thin-lens summary] " + json.dumps({
-        name: {**{k: r[k] for k in ("kernel_ms", "device_ms", "plain_ms",
-                                    "create_rays_ms", "split")},
-               "rays": r["rays"]}
+        name: {k: r[k] for k in ("kernel_ms", "device_ms", "plain_ms",
+                                 "create_rays_ms", "split")}
         for name, r in thin.items()}), flush=True)
     # ---- the bokeh kernel against its plain version on both paths, and
     # its retry-plane entry
@@ -2397,8 +2351,9 @@ def main(argv=None) -> None:
         "name": "thinlens",
         "route": "cuda",
         "source": "zoic_tpu_torch/csrc/thinlens.cu",
-        "replaces": "zoic_tpu/ops/trace_kernel.py:1381",
-        "launches": (sum(r["thinlens_launches"] for r in thin.values())
+        "replaces": "zoic_tpu/ops/trace_kernel.py:1381 and the thin lens's "
+                    "XLA-fused epilogue, zoic_tpu/models/common.py:105",
+        "launches": (sum(r["launches"] for r in thin.values())
                      + more["thinlens"]),
         "max_abs_err": max(r["max_abs_err"] for r in thin.values()),
         "ms": rep["kernel_ms"],
@@ -2459,11 +2414,9 @@ def main(argv=None) -> None:
         "source": "zoic_tpu_torch/csrc/epilogue.cu",
         "replaces": "zoic_tpu/models/common.py:105",
         "launches": (sum(r["epilogue_launches"] for r in rt.values())
-                     + sum(r["epilogue_launches"] for r in thin.values())
                      + more["epilogue"]),
         "max_abs_err": max([r["epilogue"]["max_abs_err"]
-                            for r in (*rt.values(), *thin.values())]
-                           + [ragged_err]),
+                            for r in rt.values()] + [ragged_err]),
         "ms": epi["kernel_ms"],
         "device_ms": epi["device_ms"],
         "plain_ms": epi["plain_ms"],
@@ -2488,22 +2441,6 @@ def main(argv=None) -> None:
         "config": f"headline fit cover, 32 keys x {CIRCLES_N}",
         "entries_ms": circ["entries_ms"],
         "card_us": circ["card_us"],
-    }, {
-        "name": "thinlens_rays",
-        "route": "cuda",
-        "source": "zoic_tpu_torch/csrc/thinlens.cu",
-        "replaces": "zoic_tpu/ops/trace_kernel.py:1381 and the thin lens's "
-                    "XLA-fused epilogue, zoic_tpu/models/common.py:105",
-        "launches": (sum(r["rays_launches"] for r in thin.values())
-                     + more["thinlens_rays"]),
-        "max_abs_err": max(r["rays"]["max_abs_err"] for r in thin.values()),
-        "ms": rep["rays"]["kernel_ms"],
-        "device_ms": rep["rays"]["device_ms"],
-        "plain_ms": rep["rays"]["plain_ms"],
-        "bound_ms": rep["rays"]["bound"][0],
-        "bound_by": rep["rays"]["bound"][1],
-        "library_ms": None,
-        "config": "thinlens_f1.4",
     }]
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
           and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,
@@ -2511,9 +2448,8 @@ def main(argv=None) -> None:
     check(entries[5]["launches"] == entries[0]["launches"],
           "the epilogue did not launch once for each raytraced kernel "
           "launch of the main paths")
-    check(entries[7]["launches"] > 0 and more["thinlens"] == 0,
-          "the thin-lens main paths did not run the finished rays' instance "
-          "alone")
+    check(entries[1]["launches"] > 0,
+          "the thin-lens main paths did not run the thin-lens kernel")
 
     print("[32 summary] " + json.dumps({
         "compile_s": {n: r["compile_s"] for n, r in comp.items()},

@@ -1,13 +1,16 @@
 """The pre-check's circle fit around its CUDA kernel, on the CPU.
 
-``ops/circles_kernel.fit_circles`` and ``reach_at`` run the plain numpy
-(``pupil._fit_circles_np``, ``pupil._reach_np``) for CPU tensors and never
-launch.  The host steps of the card path (``_fit_on_card``: the radii,
-their squares, the pair's indices, ``q``, the reject-all keys) are held to
-the plain fit bit for bit with the two kernel entries written out here in
-numpy as ``csrc/circles.cu`` defines them: the reach as a max of
-``fl64(d * d) + fl64(fl32(py * py))``, the pick as the least (count, flat
-index) of integer joint counts.  The kernel itself is held to the plain
+``ops/circles_kernel.fit_circles`` writes the fit's host steps once (the
+radii, their squares, the pair's indices, ``q``, the reject-all keys) and
+runs its two reductions on the card for CUDA tensors (the entries
+``reach`` and ``pick``) and in numpy for CPU tensors (``reach_plain`` and
+``pick_plain``).  On CPU tensors it never launches and gives the JAX
+package's numpy fit (``zoic_tpu/pupil.py:_fit_circles_np``) bit for bit.
+The two entries are written out here in numpy as ``csrc/circles.cu``
+defines them (the reach as a max of ``fl64(d * d) + fl64(fl32(py *
+py))``, the pick as the least (count, flat index) of integer joint
+counts): the plain reductions give their results, and the fit through
+them gives the plain fit's bits.  The kernel itself is held to the plain
 fit on the card (``tests/test_torch_circles_cuda.py``).
 """
 
@@ -21,6 +24,8 @@ import torch
 from _circles_cases import planted
 from _torch_threads import one_thread  # noqa: F401
 
+from zoic_tpu import pupil as jpupil
+
 import zoic_tpu_torch as zpt
 from zoic_tpu_torch import pupil as tp
 from zoic_tpu_torch.ops import _build
@@ -30,8 +35,9 @@ R_MAX = 3.6 * 0.5 * np.sqrt(2.0)
 
 
 def _reach_written_out(lx, ly, ok, centres):
-    lxn, lyn, okn = lx.numpy(), ly.numpy(), ok.numpy()
-    cen = np.broadcast_to(centres.numpy(), (lxn.shape[0], centres.shape[-1]))
+    lxn, lyn, okn = np.asarray(lx), np.asarray(ly), np.asarray(ok)
+    cen = np.asarray(centres)
+    cen = np.broadcast_to(cen, (lxn.shape[0], cen.shape[-1]))
     m2 = np.full(cen.shape, -1.0)
     for k in range(lxn.shape[0]):
         if okn[k].any():
@@ -43,7 +49,7 @@ def _reach_written_out(lx, ly, ok, centres):
 
 
 def _pick_written_out(lx, ly, rk2, cand, negi, posi, stride):
-    lxn, lyn = lx.numpy(), ly.numpy()
+    lxn, lyn = np.asarray(lx), np.asarray(ly)
     count = np.empty(lxn.shape[0], np.int64)
     flat = np.empty(lxn.shape[0], np.int64)
     for k in range(lxn.shape[0]):
@@ -59,14 +65,10 @@ def _pick_written_out(lx, ly, rk2, cand, negi, posi, stride):
 
 
 def _card_path_written_out(monkeypatch):
-    """The card path of both dispatchers, with the kernel's two entries
-    written out in numpy."""
-    monkeypatch.setattr(ck, "reach", _reach_written_out)
-    monkeypatch.setattr(ck, "pick", _pick_written_out)
-    monkeypatch.setattr(ck, "fit_circles", ck._fit_on_card)
-    monkeypatch.setattr(
-        ck, "reach_at",
-        lambda lx, ly, ok, c: ck.reach(lx, ly, ok, torch.from_numpy(c)))
+    """The fit's two reductions, and the smoothing's reach, as the kernel's
+    entries define them, written out in numpy."""
+    monkeypatch.setattr(ck, "reach_plain", _reach_written_out)
+    monkeypatch.setattr(ck, "pick_plain", _pick_written_out)
 
 
 @pytest.fixture
@@ -82,12 +84,18 @@ def _tensors(n_keys, n, seed):
     return tuple(torch.from_numpy(a) for a in planted(n_keys, n, seed))
 
 
+def _cand():
+    cand = np.linspace(-3.0, 3.0, ck.CIRCLE_CENTERS)
+    return cand, np.where(cand <= 0.0)[0], np.where(cand >= 0.0)[0]
+
+
 @pytest.mark.parametrize("n_keys,n", [(6, 4096), (5, 50_000)])
 def test_fit_circles_on_cpu_is_the_plain_fit(n_keys, n):
+    """CPU tensors: no launch, and the JAX package's numpy fit's bits."""
     lx, ly, ok = _tensors(n_keys, n, seed=n)
     before = ck.launches
     got = ck.fit_circles(lx, ly, ok)
-    want = tp._fit_circles_np(lx.numpy(), ly.numpy(), ok.numpy())
+    want = jpupil._fit_circles_np(lx.numpy(), ly.numpy(), ok.numpy())
     assert ck.launches == before
     for g, w in zip(_bits(*got), _bits(*want)):
         np.testing.assert_array_equal(g, w)
@@ -95,11 +103,12 @@ def test_fit_circles_on_cpu_is_the_plain_fit(n_keys, n):
 
 @pytest.mark.parametrize("n_keys,n", [(6, 4096), (5, 50_000), (8, 30_001)])
 def test_card_path_host_steps_match_plain_fit(written_out_entries, n_keys, n):
-    """Strides 1, 4 and 2; the reject-all key keeps (0, -1), the all-tie key
-    picks the first pair."""
+    """The fit through the entries as the kernel defines them gives the
+    plain fit's bits.  Strides 1, 4 and 2; the reject-all key keeps (0,
+    -1), the all-tie key picks the first pair."""
     lx, ly, ok = _tensors(n_keys, n, seed=n + 1)
-    got = ck._fit_on_card(lx, ly, ok)
-    want = tp._fit_circles_np(lx.numpy(), ly.numpy(), ok.numpy())
+    want = jpupil._fit_circles_np(lx.numpy(), ly.numpy(), ok.numpy())
+    got = ck.fit_circles(lx, ly, ok)
     for g, w in zip(_bits(*got), _bits(*want)):
         np.testing.assert_array_equal(g, w)
     a1, q1, a2, q2 = got
@@ -109,16 +118,43 @@ def test_card_path_host_steps_match_plain_fit(written_out_entries, n_keys, n):
 
 
 def test_pick_written_out_breaks_ties_at_the_first_index():
+    """Circles that hold every sample, and circles that hold none: every
+    pair ties, and both the written-out entry and ``pick_plain`` take flat
+    index 0."""
     lx, ly, ok = _tensors(6, 4096, seed=3)
-    cand = np.linspace(-3.0, 3.0, tp._CIRCLE_CENTERS)
-    negi, posi = np.where(cand <= 0.0)[0], np.where(cand >= 0.0)[0]
-    rk2 = np.full((6, cand.size), 100.0)  # every circle holds every sample
-    count, flat = _pick_written_out(lx, ly, rk2, cand, negi, posi, 1)
-    assert (count == 4096).all() and (flat == 0).all()
+    cand, negi, posi = _cand()
+    for rk2, want in ((np.full((6, cand.size), 100.0), 4096),
+                      (np.full((6, cand.size), -1.0), 0)):
+        for pick in (_pick_written_out, ck.pick_plain):
+            count, flat = pick(lx, ly, rk2, cand, negi, posi, 1)
+            assert (count == want).all() and (flat == 0).all()
+
+
+@pytest.mark.parametrize("n_keys,n", [(6, 4096), (8, 30_001)])
+def test_plain_entries_are_the_written_out_kernel(n_keys, n):
+    """``reach_plain`` (shared and a key's own centres) and ``pick_plain``
+    (at the fit's radii and stride) give the kernel's entries' results
+    bit for bit, counts included."""
+    lx, ly, ok = _tensors(n_keys, n, seed=n + 5)
+    cand, negi, posi = _cand()
+    m2 = ck.reach_plain(lx, ly, ok, torch.from_numpy(cand))
+    np.testing.assert_array_equal(
+        _bits(m2)[0], _bits(_reach_written_out(lx, ly, ok, cand))[0])
+    own = np.random.default_rng(n).uniform(-3.0, 3.0, (n_keys, 2))
+    np.testing.assert_array_equal(
+        _bits(ck.reach_plain(lx, ly, ok, own))[0],
+        _bits(_reach_written_out(lx, ly, ok, own))[0])
+    live = m2[:, 0] >= 0.0
+    rk2 = np.where(live[:, None], (np.sqrt(np.maximum(m2, 0.0)) * 1.01
+                                   + 0.005) ** 2, 0.0)
+    stride = max(1, n // ck.CIRCLE_SEL_SAMPLES)
+    for g, w in zip(ck.pick_plain(lx, ly, rk2, cand, negi, posi, stride),
+                    _pick_written_out(lx, ly, rk2, cand, negi, posi, stride)):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_reach_at_on_cpu_is_the_smoothing_loop():
-    """``pupil._reach_np`` gives what the smoothing loop computed inline
+    """``reach_at_plain`` gives what the smoothing loop computed inline
     before, and -1 on the key with no accepted sample; no launch."""
     lx, ly, ok = _tensors(6, 4096, seed=7)
     rng = np.random.default_rng(7)
@@ -136,8 +172,9 @@ def test_reach_at_on_cpu_is_the_smoothing_loop():
             inline = ((px - centres[k, j]) ** 2 + py**2).max()
             assert m2[k, j].view(np.int64) == np.float64(inline).view(np.int64)
     np.testing.assert_array_equal(
-        _bits(m2)[0],
-        _bits(_reach_written_out(lx, ly, ok, torch.from_numpy(centres)))[0])
+        _bits(m2)[0], _bits(_reach_written_out(lx, ly, ok, centres))[0])
+    np.testing.assert_array_equal(
+        _bits(m2)[0], _bits(ck.reach_at_plain(lx, ly, ok, centres))[0])
 
 
 def test_entries_refuse_cpu_tensors():
@@ -155,8 +192,9 @@ def test_entries_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("domain", ["disk", "square"])
 def test_build_precheck_card_path_on_cpu(monkeypatch, domain):
-    """``build_precheck`` through the card path's host steps gives the plain
-    build's profile bit for bit, on the headline's LUT at 4,096 samples."""
+    """``build_precheck`` with the fit's and the smoothing's reductions as
+    the kernel's entries define them gives the plain build's profile bit
+    for bit, on the headline's LUT at 4,096 samples."""
     st = zpt.load_state(zpt.data.state_path(), device="cpu")
     lens = dataclasses.replace(st.lens, profile=None)
     rng = np.random.default_rng(11)

@@ -6,10 +6,12 @@ Imports no jax; on a machine without JAX leave out ``tests/conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_circles_cuda.py -q
 
 Every comparison is of bits: the kernel path of ``fit_circles`` and
-``reach_at`` against ``pupil._fit_circles_np`` and ``pupil._reach_np`` on
-the same cover traces, made on the card as the compile makes them, and a
-compile on the card against the same compile with both dispatchers sent
-to the numpy.  Without a card each test skips: the kernel has no CPU mode.
+``reach_at`` against their plain route (``fit_circles`` on CPU copies,
+with ``reach_plain`` and ``pick_plain``; ``reach_at_plain``) on the same
+cover traces, made on the card as the compile makes them, the ``pick``
+entry against ``pick_plain``, and a compile on the card against the same
+compile with both dispatchers sent to the plain route.  Without a card
+each test skips: the kernel has no CPU mode.
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ from zoic_tpu_torch import pupil as tp
 from zoic_tpu_torch.ops import circles_kernel as ck
 
 COMPILE_N = 50_000
+FIT = ck.fit_circles
 
 
 @pytest.fixture
@@ -31,10 +34,6 @@ def cuda_dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda")
-
-
-def _np(t):
-    return t.cpu().numpy()
 
 
 def _bits(*arrays):
@@ -66,15 +65,14 @@ def _check_fit(lx, ly, ok):
     before = ck.launches
     got = ck.fit_circles(lx, ly, ok)
     assert ck.launches == before + 2
-    _assert_bits_equal(got, tp._fit_circles_np(_np(lx), _np(ly), _np(ok)))
+    _assert_bits_equal(got, FIT(lx.cpu(), ly.cpu(), ok.cpu()))
     # the smoothing loop's reach at moved centres, a key's own pair
     a1, _, a2, _ = got
     rng = np.random.default_rng(lx.shape[1])
     centres = np.stack([a1, a2], 1) + rng.uniform(-0.05, 0.05, (a1.size, 2))
     m2 = ck.reach_at(lx, ly, ok, centres)
     assert ck.launches == before + 3
-    _assert_bits_equal([m2], [tp._reach_np(_np(lx), _np(ly), _np(ok),
-                                           centres)])
+    _assert_bits_equal([m2], [ck.reach_at_plain(lx, ly, ok, centres)])
     return got
 
 
@@ -110,23 +108,28 @@ def test_fit_matches_numpy_on_planted_keys(cuda_dev, n_keys, n):
 def test_pick_ties_and_counts(cuda_dev):
     """Circles that hold every sample: every pair counts the whole
     subsample and the first flat index wins; circles that hold none count
-    0 at flat index 0 too."""
-    lx, ly, _ = (torch.from_numpy(a).to(cuda_dev)
-                 for a in planted(6, 50_000, seed=2))
-    cand = np.linspace(-3.0, 3.0, tp._CIRCLE_CENTERS)
+    0 at flat index 0 too; at the fit's own radii, count and index are
+    ``pick_plain``'s."""
+    lx, ly, ok = (torch.from_numpy(a).to(cuda_dev)
+                  for a in planted(6, 50_000, seed=2))
+    cand = np.linspace(-3.0, 3.0, ck.CIRCLE_CENTERS)
     negi, posi = np.where(cand <= 0.0)[0], np.where(cand >= 0.0)[0]
     for rk2, want in ((np.full((6, cand.size), 100.0), 12_500),
                       (np.full((6, cand.size), -1.0), 0)):
         count, flat = ck.pick(lx, ly, rk2, cand, negi, posi, 4)
         assert (count == want).all() and (flat == 0).all()
+    m2 = ck.reach(lx, ly, ok, torch.from_numpy(cand).to(cuda_dev))
+    rk2 = (np.sqrt(np.maximum(m2, 0.0)) * 1.01 + 0.005) ** 2
+    for g, w in zip(ck.pick(lx, ly, rk2, cand, negi, posi, 4),
+                    ck.pick_plain(lx, ly, rk2, cand, negi, posi, 4)):
+        np.testing.assert_array_equal(g, w)
 
 
 def _numpy_dispatch(monkeypatch):
-    """Both dispatchers of the compile sent to the plain numpy."""
+    """Both dispatchers of the compile sent to the plain route."""
     monkeypatch.setattr(ck, "fit_circles", lambda lx, ly, ok: (
-        tp._fit_circles_np(_np(lx), _np(ly), _np(ok))))
-    monkeypatch.setattr(ck, "reach_at", lambda lx, ly, ok, c: (
-        tp._reach_np(_np(lx), _np(ly), _np(ok), c)))
+        FIT(lx.cpu(), ly.cpu(), ok.cpu())))
+    monkeypatch.setattr(ck, "reach_at", ck.reach_at_plain)
 
 
 @pytest.mark.cuda

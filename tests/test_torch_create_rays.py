@@ -154,11 +154,10 @@ FORMERLY_REFUSED = {
 
 
 @pytest.mark.parametrize("case", list(FORMERLY_REFUSED))
-def test_out_of_slice_configs_raise(case):
-    """Named for what these configurations did while the raytraced
-    variants were unported: each now runs through the port's
-    ``create_rays`` and matches ``zoic_tpu.create_rays`` (its compacted
-    retry machine, interpret mode) at max_tries 6.
+def test_every_raytraced_variant_matches_jax_create_rays(case):
+    """Each variant runs through the port's ``create_rays`` and matches
+    ``zoic_tpu.create_rays`` (its compacted retry machine, interpret mode)
+    at max_tries 6.
 
     With hash draws a ray's draws are keyed by its own try count, so the
     results match per ray: weights and the four counters equal (but for

@@ -93,9 +93,9 @@ def test_raytraced_kernel_matches_plain(cuda_state, n, max_tries):
 def test_epilogue_kernel_matches_plain(cuda_dev, n, offset):
     """The epilogue kernel against its plain version bit for bit: weights,
     both derivatives and the four counters, at exposures of both signs and
-    0, with and without tir, weighted and the pinhole; batches that do not
-    fill a group of four rays, a block or the grid, and inputs off the
-    16-byte alignment (the one-ray path); two launches equal."""
+    0; batches that do not fill a group of four rays, a block or the grid,
+    and inputs off the 16-byte alignment (the one-ray path); two launches
+    equal."""
     rng = np.random.default_rng(n)
     m = n + offset
     tries = torch.from_numpy(rng.integers(0, 27, m).astype(np.int32))
@@ -104,18 +104,17 @@ def test_epilogue_kernel_matches_plain(cuda_dev, n, offset):
     t, r, o, d = (x.to(cuda_dev)[offset:] for x in (tries, tir, *vecs))
     for e in (-0.5, 0.0, 2.0):
         ex = torch.tensor(e, dtype=torch.float32, device=cuda_dev)
-        for tir_in, count_weight in ((r, True), (None, True), (None, False)):
-            args = (t, tir_in, o, d, ex, 25)
-            before = ek.launches
-            k = ek.epilogue_fused(*args, count_weight=count_weight)
-            assert ek.launches == before + (n > 0)
-            p = ek.epilogue_plain(*args, count_weight=count_weight)
-            again = ek.epilogue_fused(*args, count_weight=count_weight)
-            torch.cuda.synchronize()
-            for a, b, c in zip(k, p, again):
-                assert a.shape == b.shape and a.dtype == b.dtype
-                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-                assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        args = (t, r, o, d, ex, 25)
+        before = ek.launches
+        k = ek.epilogue_fused(*args)
+        assert ek.launches == before + (n > 0)
+        p = ek.epilogue_plain(*args)
+        again = ek.epilogue_fused(*args)
+        torch.cuda.synchronize()
+        for a, b, c in zip(k, p, again):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -191,9 +190,9 @@ def test_create_rays_takes_columns_of_a_sample_tensor(cuda_state, model):
     assert torch.equal(got.weight, want.weight)
     assert int(gs.tries_total) == int(ws.tries_total)
     with pytest.raises(ValueError, match="must be contiguous"):
-        tk.thinlens_fused(uv[:, 0], uv[:, 1], lens[:, 0], lens[:, 1],
-                          0.36, 1.8, 100.0, 6.0, 0.35, 9, use_dof=True,
-                          has_ov=True, max_tries=6)
+        tk.thinlens_rays(uv[:, 0], uv[:, 1], lens[:, 0], lens[:, 1],
+                         0.36, 1.8, 100.0, 6.0, 0.35, 9, 0.0, use_dof=True,
+                         has_ov=True, max_tries=6)
 
 
 @pytest.mark.cuda
@@ -276,52 +275,6 @@ def test_raytraced_variant_matches_plain(cuda_dev, name, n):
         assert torch.equal(a.view(torch.int32), k.view(torch.int32))
 
 
-THIN_BRANCHES = {
-    "pinhole": dict(use_dof=False, has_ov=False),
-    "dof": dict(use_dof=True, has_ov=False),
-    "dof-vignette": dict(use_dof=True, has_ov=True),
-    "dof-bokeh": dict(use_dof=True, has_ov=False, presampled=True),
-    "dof-bokeh-vignette": dict(use_dof=True, has_ov=True, presampled=True),
-}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [16 * 128 + 77, 300_000])
-@pytest.mark.parametrize("branch", list(THIN_BRANCHES))
-def test_thinlens_kernel_matches_plain(cuda_dev, branch, n):
-    """tries equal but for at most 1 ray in 10,000 and payloads within
-    1e-5 (the kernel is built to round as the plain version does, so both
-    are in practice equal); strong vignetting, so retries run to the
-    budget, and retry planes of a quarter batch."""
-    flags = THIN_BRANCHES[branch]
-    rng = np.random.default_rng(n)
-    lo = -1.0 if flags.get("presampled") else 0.0
-    cols = [rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
-            rng.uniform(lo, 1, n), rng.uniform(lo, 1, n)]
-    args = [torch.from_numpy(c.astype(np.float32)).to(cuda_dev) for c in cols]
-    bp = max(128, n // 4)
-    planes = {}
-    if flags.get("presampled") and flags["has_ov"]:
-        planes = {k: torch.from_numpy(rng.uniform(-1, 1, (4, bp)).astype(
-            np.float32)).to(cuda_dev) for k in ("retry_u1", "retry_u2")}
-    scal = [torch.tensor(v, device=cuda_dev)
-            for v in (0.36, 1.7857143, 100.0, 6.0, 0.35)]
-    before = tk.thinlens_launches
-    ko, kd, kt = tk.thinlens_fused(*args, *scal, SEED, max_tries=25,
-                                   **flags, **planes)
-    assert tk.thinlens_launches == before + 1
-    po, pd, pt = tk.thinlens_plain(*args, *scal, SEED, max_tries=25,
-                                   **flags, **planes)
-    torch.cuda.synchronize()
-    assert ko.is_cuda and kt.dtype == torch.int32
-    assert int((kt != pt).sum()) <= max(1, n // 10_000)
-    same = kt == pt
-    assert float((ko - po)[same].abs().max()) <= 1e-5
-    assert float((kd - pd)[same].abs().max()) <= 1e-5
-    if flags["has_ov"]:
-        assert int(kt.max()) == 26
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("as_numbers", [False, True])
 def test_thinlens_scalars_by_value_on_cuda(cuda_dev, as_numbers):
@@ -340,21 +293,22 @@ def test_thinlens_scalars_by_value_on_cuda(cuda_dev, as_numbers):
         fields = [float(f) for f in fields]
     args = _inputs(50_000, seed=9)
     kw = dict(use_dof=True, has_ov=True, max_tries=25)
+    ex = st.exposure_control
     for focus in (None, 40.0):
         if focus is not None:
             if as_numbers:
                 fields[2] = focus
             else:
                 st.focal_distance.fill_(focus)
-        got = tk.thinlens_fused(*args, *fields, SEED, **kw)
-        want = tk.thinlens_plain(*args, *fields, SEED, **kw)
+        got = tk.thinlens_rays(*args, *fields, SEED, ex, **kw)
+        want = tk.thinlens_rays_plain(*args, *fields, SEED, ex, **kw)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     with pytest.raises(ValueError, match="contiguous"):
-        tk.thinlens_fused(args[0], args[1], args[2],
-                          torch.zeros(100_000, device=cuda_dev)[::2],
-                          *fields, SEED, **kw)
+        tk.thinlens_rays(args[0], args[1], args[2],
+                         torch.zeros(100_000, device=cuda_dev)[::2],
+                         *fields, SEED, ex, **kw)
 
 
 @pytest.mark.cuda
@@ -638,8 +592,8 @@ def test_cache_miss_spans_on_a_miss_only(cuda_dev):
         return sorted(e.name for e in prof.events()
                       if e.name.startswith("zoic."))
 
-    for cache in (tk._TABLES, tk._BLOCKS_PER_SM, bk._TABLES, bk._CARD,
-                  bk._BLOCKS_PER_SM, _launch._BOUND):
+    for cache in (tk._TABLES, bk._TABLES, bk._CARD, _launch._PER_SM,
+                  _launch._BOUND):
         cache.clear()
     missed = spans()
     assert missed.count("zoic.tables.build") == 2, missed

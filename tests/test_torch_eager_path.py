@@ -325,7 +325,6 @@ def test_impl_jnp_never_reaches_a_kernel(states, model, monkeypatch,
         raise AssertionError("impl='jnp' reached a kernel wrapper")
 
     monkeypatch.setattr(tk, "raytraced_fused", refuse)
-    monkeypatch.setattr(tk, "thinlens_fused", refuse)
     monkeypatch.setattr(tk, "thinlens_rays", refuse)
     if model == "raytraced":
         st = states["headline"][1]

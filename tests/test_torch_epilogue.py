@@ -1,14 +1,15 @@
 """The port's epilogue against the JAX package's, on the CPU.
 
 ``zoic_tpu_torch.ops.epilogue_kernel.epilogue_fused`` runs its plain
-version (``epilogue_plain``) on CPU tensors; the JAX side composes its own
+version (``epilogue_plain``) on CPU tensors; the pinhole's mode (no weight
+counting) and the thin lens's (no ``tir``), which only the plain version
+takes, run ``epilogue_plain`` itself.  The JAX side composes its own
 ``weight_and_stats``, ``apply_exposure`` and ``fake_derivatives``
 (``zoic_tpu/models/common.py``) and the counter sums of its kernel paths,
 run eagerly, never an interpret-mode kernel.  Inputs come from numpy with
 a seed: tries at 0, 1, 25 and 26 (``max_tries + 1``) and random within
 [0, 26], origins and directions with signed zeros among them, exposures
-of both signs and 0, the pinhole (no weight counting) and the thin lens
-(no ``tir``), B = 0, 1 and ``16*128+77``.  Gates: weights and the four
+of both signs and 0, B = 0, 1 and ``16*128+77``.  Gates: weights and the four
 counters equal, ``dOdy``/``dDdy`` bit-equal.  Each model's kernel path
 runs the epilogue once a ``create_rays`` (the raytraced through
 ``epilogue_fused``, the thin lens in its camera kernel's launch);
@@ -83,11 +84,15 @@ def _bits(a):
 def test_epilogue_matches_jax(exposure, count_weight, with_tir, n):
     tries, tir, origin, direction = _inputs(n)
     tir = tir if with_tir else None
-    weight, d_ody, d_ddy, stats = ek.epilogue_fused(
-        torch.from_numpy(tries), None if tir is None else torch.from_numpy(tir),
-        torch.from_numpy(origin), torch.from_numpy(direction),
-        torch.tensor(exposure, dtype=torch.float32), MAX_TRIES,
-        count_weight=count_weight)
+    args = (torch.from_numpy(tries),
+            None if tir is None else torch.from_numpy(tir),
+            torch.from_numpy(origin), torch.from_numpy(direction),
+            torch.tensor(exposure, dtype=torch.float32), MAX_TRIES)
+    if with_tir and count_weight:
+        weight, d_ody, d_ddy, stats = ek.epilogue_fused(*args)
+    else:
+        weight, d_ody, d_ddy, stats = ek.epilogue_plain(
+            *args, count_weight=count_weight)
     jw, jo, jd, jstats = _jax_epilogue(tries, tir, origin, direction,
                                        exposure, count_weight)
 
@@ -131,7 +136,7 @@ def test_kernel_path_calls_the_epilogue_once(model, monkeypatch):
 
     def counted(*a, **k):
         out = fused(*a, **k)
-        calls.append((a[1] is None, k.get("count_weight", True), out[3]))
+        calls.append((a[1] is None, True, out[3]))
         return out
 
     def counted_rays(*a, **k):

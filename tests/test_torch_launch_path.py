@@ -156,19 +156,6 @@ def test_thinlens_scalars_are_kept_beside_their_state():
     assert key not in tk._THIN_SCALARS
 
 
-def test_thinlens_fused_on_cpu_still_equals_plain():
-    """The CPU route of the wrapper after the argument change."""
-    rng = np.random.default_rng(5)
-    args = [torch.from_numpy(rng.uniform(lo, 1, 300).astype(np.float32))
-            for lo in (-1, -1, 0, 0)]
-    scal = [torch.tensor(v) for v in (0.36, 1.7857143, 100.0, 6.0, 0.35)]
-    kw = dict(use_dof=True, has_ov=True, max_tries=6)
-    got = tk.thinlens_fused(*args, *scal, 9, **kw)
-    want = tk.thinlens_plain(*args, *scal, 9, **kw)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-
-
 CHECK_CASES = {
     "dtype": (lambda t: t.double(), r"u2 must be float32 of shape \(8,\) on "
               r"cpu, got torch\.float64 \(8,\) on cpu"),

@@ -66,13 +66,11 @@ def _run_both(sx, sy, u1, u2, *, max_tries, planes=None, **flags):
         *(jnp.float32(v) for v in scal), jnp.int32(SEED),
         max_tries=max_tries, interpret=True, **flags, **jplanes,
     ))
-    before = tk.thinlens_launches
-    to, td, tt = (a.numpy() for a in tk.thinlens_fused(
+    to, td, tt = (a.numpy() for a in tk.thinlens_plain(
         *(torch.from_numpy(a) for a in (sx, sy, u1, u2)),
         *(torch.tensor(v, dtype=torch.float32) for v in scal), SEED,
         max_tries=max_tries, **flags, **tplanes,
     ))
-    assert tk.thinlens_launches == before  # CPU tensors: the plain version
     assert tt.dtype == np.int32 and to.shape == td.shape == (len(sx), 3)
     np.testing.assert_array_equal(tt, jt)
     np.testing.assert_allclose(to, jo, rtol=0, atol=ATOL)
@@ -283,11 +281,10 @@ def test_generator_and_seed_paths_are_deterministic(bokeh_path):
         zpt.create_rays(dataclasses.replace(st, bokeh=None), tcfg, *s, seed=1)
 
 
-def test_compile_camera_refuses_raytraced():
-    """RAYTRACED compiles from its lens file now
-    (``tests/test_torch_compile_camera.py``); what ``compile_camera``
-    refuses is a ``lens_data_path`` that names no readable file, where the
-    reference aborts the render (zoic.cpp:1639-1641)."""
+def test_compile_camera_refuses_an_unreadable_lens_file():
+    """``compile_camera`` refuses a RAYTRACED ``lens_data_path`` that names
+    no readable file, where the reference aborts the render
+    (zoic.cpp:1639-1641)."""
     from zoic_tpu_torch.lensfile import LensFileError
 
     cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
@@ -296,9 +293,7 @@ def test_compile_camera_refuses_raytraced():
         zpt.compile_camera(cfg, "cpu")
 
 
-def test_camera_wrapper_is_not_ported():
-    """The ``Camera`` wrapper is ported (``tests/test_torch_camera.py``),
-    its draw session too (``tests/test_torch_diag.py``): a thin-lens
-    camera compiles no lens."""
+def test_thinlens_camera_compiles_no_lens():
+    """A thin-lens ``Camera`` compiles no lens."""
     cfg = zpt.CameraConfig(lens_model=zpt.LensModel.THINLENS)
     assert zpt.Camera(cfg, "cpu").state.lens is None

@@ -2,8 +2,8 @@
 (``zoic_tpu_torch.ops.trace_kernel.thinlens_rays``), on the CPU.
 
 On CPU tensors the entry runs its plain version, ``thinlens_plain`` and
-then ``epilogue_plain``; the card runs the instance of ``csrc/thinlens.cu``
-that writes finished rays (``tests/test_torch_thinlens_fold_cuda.py``).
+then ``epilogue_plain``; the card runs ``csrc/thinlens.cu``
+(``tests/test_torch_thinlens_fold_cuda.py``).
 Here: the plain route against the plain composition bit for bit, the
 argument checks, ``create_rays`` on a thin lens against the camera kernel
 and the epilogue called in turn as the model called them before, the
@@ -138,8 +138,9 @@ CAMERAS = {
 
 
 def _before(state, cfg, sx, sy, lx, ly, seed):
-    """The model's kernel path as it was: the camera kernel's wrapper, then
-    the epilogue's, on the inputs the model makes."""
+    """The model's kernel path as it was: the camera kernel, then the
+    epilogue, each through its plain version, on the inputs the model
+    makes."""
     has_ov = cfg.optical_vignetting_distance > 0.0
     planes = {}
     if cfg.use_image:
@@ -148,12 +149,12 @@ def _before(state, cfg, sx, sy, lx, ly, seed):
             ru1, ru2 = thin_model.retry_planes(
                 state, cfg, sx.shape[0], torch.Generator().manual_seed(seed))
             planes = dict(retry_u1=ru1, retry_u2=ru2)
-    origin, direction, tries = tk.thinlens_fused(
+    origin, direction, tries = tk.thinlens_plain(
         sx, sy, lx, ly, state.tan_fov, state.aperture_radius,
         state.focal_distance, state.ov_distance, state.ov_radius, seed,
         use_dof=cfg.use_dof, has_ov=has_ov, max_tries=cfg.max_tries,
         presampled=bool(cfg.use_image), **planes)
-    return (origin, direction) + ek.epilogue_fused(
+    return (origin, direction) + ek.epilogue_plain(
         tries, None, origin, direction, state.exposure_control,
         cfg.max_tries, count_weight=cfg.use_dof)
 

@@ -1,5 +1,4 @@
-"""The thin lens's whole kernel path on a card: the instance of
-``csrc/thinlens.cu`` that writes finished rays
+"""The thin lens's whole kernel path on a card: ``csrc/thinlens.cu``
 (``trace_kernel.thinlens_rays``) against its plain version,
 ``thinlens_plain`` then ``epilogue_plain``, bit for bit.
 
@@ -124,7 +123,8 @@ def test_unaligned_outputs_take_the_one_ray_path(cuda_dev, branch, n):
         *(b.data_ptr() + 4 for b in bufs), stats.data_ptr(), n,
         int(flags["use_dof"]), int(flags["has_ov"]),
         int(flags.get("presampled", False)), flags["max_tries"] + 1, SEED,
-        *layout, tk._rays_grid(n, cuda_dev))
+        *layout, tk.thinlens_grid(n, *_launch.blocks_per_sm(
+            "thinlens", "zoic_thinlens_rays_blocks_per_sm", [], cuda_dev)))
     torch.cuda.synchronize()
     got = [b[1:].reshape(w.shape) for b, w in zip(bufs, want)] + [stats]
     _assert_bits_equal(got, want)
@@ -178,10 +178,10 @@ THIN_CAMERAS = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("camera", [*THIN_CAMERAS, "raytraced"])
 def test_create_rays_launches(cuda_dev, tmp_path, camera):
-    """A thin lens's ``create_rays`` launches its one camera kernel, the
-    instance that writes finished rays, and no epilogue; the raytraced
-    model still launches the epilogue once a call.  The thin lens's rays
-    and counters equal the plain composition's on the model's inputs."""
+    """A thin lens's ``create_rays`` launches its one camera kernel and no
+    epilogue; the raytraced model still launches the epilogue once a call.
+    The thin lens's rays and counters equal the plain composition's on the
+    model's inputs."""
     if camera == "raytraced":
         cfg = zpt.CameraConfig(
             lens_model=zpt.LensModel.RAYTRACED,
@@ -199,17 +199,15 @@ def test_create_rays_launches(cuda_dev, tmp_path, camera):
                                focal_distance=100.0, **kw)
         st = zpt.compile_camera(cfg, cuda_dev)
     args, _ = _inputs(65_536 + 13, {}, cuda_dev)
-    counts = (tk.launches, tk.thinlens_launches, tk.thinlens_rays_launches,
-              ek.launches)
+    counts = (tk.launches, tk.thinlens_rays_launches, ek.launches)
     rays, stats = zpt.create_rays(st, cfg, *args, seed=91)
     torch.cuda.synchronize()
     moved = [a - b for a, b in zip(
-        (tk.launches, tk.thinlens_launches, tk.thinlens_rays_launches,
-         ek.launches), counts)]
+        (tk.launches, tk.thinlens_rays_launches, ek.launches), counts)]
     if camera == "raytraced":
-        assert moved == [1, 0, 0, 1]
+        assert moved == [1, 0, 1]
         return
-    assert moved == [0, 0, 1, 0]
+    assert moved == [0, 1, 0]
     sx, sy, lx, ly = args
     planes = {}
     has_ov = cfg.optical_vignetting_distance > 0.0

@@ -4,11 +4,12 @@
 //
 // Replaces no TPU kernel: the JAX package fits the 2-circle cover on the
 // host in numpy (zoic_tpu/pupil.py:_fit_circles_np, and the smoothing loop
-// of build_precheck).  The port kept that numpy as its plain version
-// (zoic_tpu_torch/pupil.py:_fit_circles_np, _reach_np) and runs it for CPU
-// tensors; for CUDA tensors the two large reductions of the fit run here,
-// on the cover traces where the compile made them, and the host keeps the
-// small steps that define bits in numpy (ops/circles_kernel.py).
+// of build_precheck).  The port writes the fit once
+// (zoic_tpu_torch/ops/circles_kernel.py:fit_circles): its small steps that
+// define bits stay on the host in numpy, and its two large reductions run
+// here for CUDA tensors, on the cover traces where the compile made them,
+// and in numpy for CPU tensors (reach_plain, pick_plain, beside the
+// entries' wrappers).
 //
 // Entry zoic_circles_reach_launch, per key k and centre c:
 //   m2[k, c] = max over accepted n of fl64(fl64(d * d) + (double) fl32(py * py)),

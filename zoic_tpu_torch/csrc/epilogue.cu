@@ -9,12 +9,11 @@
 // fake_derivatives; the counter sums of zoic_tpu/models/raytraced.py:252-257
 // and zoic_tpu/models/thinlens.py:199-206).  Per ray i, with
 // e = *exposure (a 0-d tensor on the card, read here, never on the host):
-//   w        = count_weight && tries[i] > max_tries ? 0 : 1
+//   w        = tries[i] > max_tries ? 0 : 1
 //   weight   = e > 0 ? w * (1 + e*e) : e < 0 ? w * (1 / (1 + e*e)) : w
 //   d_ody[i] = tries[i] > 0 ? origin[i] : 0;  d_ddy[i] likewise from dir
 //   stats    = {#(tries <= max_tries), #(tries > max_tries), sum(tir),
-//               sum(tries)}, the first two 0 without count_weight (the
-//               pinhole), the third 0 without tir (the thin lens)
+//               sum(tries)}
 // A ray that leaves its retry loop with tries == max_tries + 1 is
 // zero-weighted even when its last retry succeeded (the reference's quirk,
 // zoic_tpu_torch/models/common.py).  Built with --fmad=false, 1 + e*e is a
@@ -62,7 +61,7 @@ epilogue_kernel(const int* __restrict__ tries, const int* __restrict__ tir,
                 const float* __restrict__ exposure,
                 float* __restrict__ weight, float* __restrict__ d_ody,
                 float* __restrict__ d_ddy, int* __restrict__ stats, int n,
-                int max_tries, bool count_weight, bool vec) {
+                int max_tries, bool vec) {
   const Exposure x = exposure_factors(exposure);
   const unsigned all = 0xffffffffu;
   const int lane = threadIdx.x & 31;
@@ -75,13 +74,12 @@ epilogue_kernel(const int* __restrict__ tries, const int* __restrict__ tir,
   for (int tile = first >> 5; tile < tiles; tile += stride >> 5) {
     const int g = tile * 32 + lane;  // the lane's four rays, 4g..4g+3
     const int4 t4 = reinterpret_cast<const int4*>(tries)[g];
-    const int4 r4 = tir != nullptr ? reinterpret_cast<const int4*>(tir)[g]
-                                   : make_int4(0, 0, 0, 0);
+    const int4 r4 = reinterpret_cast<const int4*>(tir)[g];
     reinterpret_cast<float4*>(weight)[g] = make_float4(
-        ray_weight(t4.x, r4.x, max_tries, count_weight, x, c),
-        ray_weight(t4.y, r4.y, max_tries, count_weight, x, c),
-        ray_weight(t4.z, r4.z, max_tries, count_weight, x, c),
-        ray_weight(t4.w, r4.w, max_tries, count_weight, x, c));
+        ray_weight(t4.x, r4.x, max_tries, true, x, c),
+        ray_weight(t4.y, r4.y, max_tries, true, x, c),
+        ray_weight(t4.z, r4.z, max_tries, true, x, c),
+        ray_weight(t4.w, r4.w, max_tries, true, x, c));
     // bit l of retried[k]: ray 4l + k of the tile was retried
     const unsigned retried[4] = {
         __ballot_sync(all, t4.x > 0), __ballot_sync(all, t4.y > 0),
@@ -114,8 +112,7 @@ epilogue_kernel(const int* __restrict__ tries, const int* __restrict__ tir,
   }
   for (int i = tiles * kTile + first; i < n; i += stride) {
     const int t = tries[i];
-    weight[i] = ray_weight(t, tir != nullptr ? tir[i] : 0, max_tries,
-                           count_weight, x, c);
+    weight[i] = ray_weight(t, tir[i], max_tries, true, x, c);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const int64_t j = 3 * (int64_t)i + k;
@@ -132,21 +129,19 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // Zero stats ([4] int32) and run the epilogue over n rays on `stream`;
-// returns the first CUDA error as an int (0 = success).  tries, weight: [n];
-// tir: [n] or null (the thin lens); origin, dir, d_ody, d_ddy: [n, 3];
-// exposure: one float; all device memory.  count_weight = 0 keeps every
-// weight 1 before the exposure and the first two counters 0 (the pinhole).
+// returns the first CUDA error as an int (0 = success).  tries, tir,
+// weight: [n]; origin, dir, d_ody, d_ddy: [n, 3]; exposure: one float; all
+// device memory.
 extern "C" int zoic_epilogue_launch(const int* tries, const int* tir,
                                     const float* origin, const float* dir,
                                     const float* exposure, float* weight,
                                     float* d_ody, float* d_ddy, int* stats,
-                                    int n, int max_tries, int count_weight,
-                                    void* stream) {
+                                    int n, int max_tries, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (n < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(stats, 0, 4 * sizeof(int), s);
   if (err != cudaSuccess || n == 0) return (int)err;
-  const bool vec = aligned16(tries) && (tir == nullptr || aligned16(tir)) &&
+  const bool vec = aligned16(tries) && aligned16(tir) &&
                    aligned16(origin) && aligned16(dir) &&
                    aligned16(weight) && aligned16(d_ody) && aligned16(d_ddy);
   // a warp a whole tile, a thread one of the rays no whole tile holds (all
@@ -158,6 +153,6 @@ extern "C" int zoic_epilogue_launch(const int* tries, const int* tir,
   const int grid = for_tiles > for_rest ? for_tiles : for_rest;
   epilogue_kernel<<<grid, kBlock, 0, s>>>(tries, tir, origin, dir, exposure,
                                           weight, d_ody, d_ddy, stats, n,
-                                          max_tries, count_weight != 0, vec);
+                                          max_tries, vec);
   return (int)cudaGetLastError();
 }

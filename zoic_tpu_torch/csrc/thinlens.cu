@@ -1,8 +1,11 @@
-// Thin-lens camera-ray generation for Hopper (sm_90a): one thread per ray.
+// Thin-lens camera-ray generation for Hopper (sm_90a): the thin lens's whole
+// kernel path, finished rays, their weights and the run counters in one
+// launch (entry zoic_thinlens_rays_launch).
 //
 // Replaces the TPU kernel zoic_tpu/ops/trace_kernel.py:_thinlens_kernel
-// (wrapper thinlens_fused), the reference's THINLENS branch of
-// camera_create_ray (src/zoic.cpp:1771-1848).
+// (its wrapper here: ops/trace_kernel.py:thinlens_rays), the reference's
+// THINLENS branch of camera_create_ray (src/zoic.cpp:1771-1848), and the
+// jnp epilogue XLA fuses after it.
 //
 // What it computes, per ray i (flat index in the batch):
 //   pinhole direction p = (sx, sy) * tan_fov, normalised with rsqrt; without
@@ -15,35 +18,30 @@
 //   from the counter hash keyed by (i, seed, round), or with image bokeh from
 //   the presampled retry planes at the cell the TPU kernel's tile layout
 //   gives ray i in that round (plane_cell, common.cuh).  tries is the last
-//   round the ray took.  Output: origin = (lx, ly, 0), dir = (dx, dy, -dz).
+//   round the ray took.  The ray: origin = (lx, ly, 0), dir = (dx, dy, -dz).
+//   Then what epilogue.cu computes from it (common.cuh: the weight, 0 iff
+//   use_dof and tries > max_tries, then the exposure read on the card; dOdy,
+//   dDdy the origin and dir of a retried ray, else 0; the four counters,
+//   tir 0), so that no pass reads the rays back.
 // The TPU kernel's straggler compaction (fold eras, bitonic unsort) is
 // scheduling: each thread walks its own rounds, which gives the same per-ray
 // result because every draw is keyed by the ray's id and round.
 //
-// What bounds it on this card: memory, 16 B read and 28 B written per ray
-// with ~40 float operations per attempt; a warp with a vignetted ray runs
-// until that ray's last round, so retry divergence is its known cost.  The
-// five camera scalars are kernel arguments by value: a launch reads no
-// table.  Built with ZOIC_COUNT_LANES the kernel also counts the lanes and
-// warps that enter an attempt (lane use under vignetting retries).
-//
 // Rounding: built with --fmad=false and IEEE division, rsqrtf where the
 // plain version uses torch.rsqrt, in the same order of operations as
-// zoic_tpu_torch/ops/trace_kernel.py:thinlens_plain.
+// zoic_tpu_torch/ops/trace_kernel.py:thinlens_plain; every output is
+// bit-equal to thinlens_plain followed by epilogue_plain
+// (ops/trace_kernel.py:thinlens_rays_plain).
 //
-// A second instance of the kernel (kRays, entry zoic_thinlens_rays_launch)
-// is the thin lens's whole kernel path: after its rays it computes what
-// epilogue.cu computes from them (common.cuh: the weight, 0 iff use_dof
-// and tries > max_tries, then the exposure read on the card; dOdy, dDdy
-// the origin and dir of a retried ray, else 0; the four counters, tir 0),
-// so that no pass reads the rays back.  Every output is bit-equal to
-// thinlens_plain followed by epilogue_plain (ops/trace_kernel.py:
-// thinlens_rays_plain).  It reads 16 B a ray and writes 52 (origin, dir,
-// weight, dOdy, dDdy), and no tries; so every access is 16 B a lane on
-// neighbouring addresses, as in epilogue.cu: a warp takes a tile of 128
-// rays, lane l the four rays 4l..4l+3 of each input (one float4 each) and
-// of the weight, and the tile's 384 floats of origin, of dir and of each
-// derivative as 96 float4, lane l the ones at l, l + 32 and l + 64.  A
+// What bounds it on this card: memory, 16 B read a ray and 52 written
+// (origin, dir, weight, dOdy, dDdy), with ~40 float operations per attempt;
+// a warp with a vignetted ray runs until that ray's last round, so retry
+// divergence is its known cost.  The five camera scalars are kernel
+// arguments by value: a launch reads no table.  So every access is 16 B a
+// lane on neighbouring addresses, as in epilogue.cu: a warp takes a tile of
+// 128 rays, lane l the four rays 4l..4l+3 of each input (one float4 each)
+// and of the weight, and the tile's 384 floats of origin, of dir and of
+// each derivative as 96 float4, lane l the ones at l, l + 32 and l + 64.  A
 // float's ray is rarely the lane's own, so origin and dir go through the
 // warp's 3 KB of shared memory, and the "retried" bits (tries > 0) to every
 // lane by four ballots; the derivatives are masked as they are stored.
@@ -52,10 +50,12 @@
 // grid-stride loop, so the counters, reduced in each warp and block
 // (add_counts), reach the [4] buffer by one atomicAdd a non-zero counter a
 // block: about four hundred blocks, where a block a 256 rays would make
-// 290,000 same-address atomics an HD frame at AA 3.  Inputs off the 16-byte alignment are read a float at a time;
-// rays past the last whole tile, and every ray when an output is off it,
-// take a one-ray loop.  The buffer is zeroed on the same stream first
-// (cudaMemsetAsync).
+// 290,000 same-address atomics an HD frame at AA 3.  Inputs off the
+// 16-byte alignment are read a float at a time; rays past the last whole
+// tile, and every ray when an output is off it, take a one-ray loop.  The
+// buffer is zeroed on the same stream first (cudaMemsetAsync).  Built with
+// ZOIC_COUNT_LANES the kernel also counts the lanes and warps that enter an
+// attempt (lane use under vignetting retries).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,10 +67,9 @@ namespace {
 using namespace zoic;
 
 constexpr int kBlock = 256;
-// the instance that writes finished rays: rays a warp takes a step (four
-// a lane), and blocks an SM must hold: at most 85 registers a thread,
-// which it fits unspilled (at 4 blocks, 64 registers, it spills and is
-// 9% slower)
+// rays a warp takes a step (four a lane), and blocks an SM must hold: at
+// most 85 registers a thread, which it fits unspilled (at 4 blocks, 64
+// registers, it spills and is 9% slower)
 constexpr int kTile = 128;
 constexpr int kRaysBlocksPerSm = 3;
 
@@ -121,11 +120,9 @@ struct Params {
   bool use_dof, has_ov, presampled, reuse;
 };
 
-// Where an instance writes: origin, dir and tries (the camera kernel), or
-// the finished rays and the counters (the instance that ends the path).
+// Where the kernel writes: the finished rays and the counters.
 struct Out {
   float *origin, *dir;
-  int* tries;
   float *weight, *d_ody, *d_ddy;
   int* stats;
   const float* exposure;
@@ -198,119 +195,104 @@ __device__ __forceinline__ float4 four(const float* x, int g, bool vec_in) {
           __ldg(x + 4 * g + 3)};
 }
 
-// kRays = false: the camera kernel, one ray a thread, writing origin, dir
-// and tries.  kRays = true: the thin lens's whole kernel path, writing the
-// finished rays, their weights and the counters (the file's header).
-template <bool kRays>
-__global__ void __launch_bounds__(kBlock, kRays ? kRaysBlocksPerSm : 1)
+// the thin lens's whole kernel path, writing the finished rays, their
+// weights and the counters (the file's header)
+__global__ void __launch_bounds__(kBlock, kRaysBlocksPerSm)
 thinlens_kernel(const Params p, const Out o) {
-  if constexpr (!kRays) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= p.B) return;
-    const Ray r = camera_ray(i, p);
-    o.origin[3 * i + 0] = r.lx;
-    o.origin[3 * i + 1] = r.ly;
-    o.origin[3 * i + 2] = 0.0f;
-    o.dir[3 * i + 0] = r.dx;
-    o.dir[3 * i + 1] = r.dy;
-    o.dir[3 * i + 2] = -r.dz;
-    o.tries[i] = r.tries;
-  } else {
-    const Exposure x = exposure_factors(o.exposure);
-    const int max_tries = p.max_total - 1;
-    const int lane = threadIdx.x & 31;
-    const int first = blockIdx.x * blockDim.x + threadIdx.x;
-    const int stride = gridDim.x * blockDim.x;
-    const int tiles = o.vec ? p.B / kTile : 0;
-    // a warp's tile as it is stored: origin's 96 float4, then dir's
-    __shared__ float4 staged[kBlock / 32][2 * 96];
-    float4* mine = staged[threadIdx.x >> 5];
-    Counts c;
-    // the warp's index is uniform across its lanes, so every lane of a warp
-    // runs the same tiles and the ballots see all 32
-    for (int tile = first >> 5; tile < tiles; tile += stride >> 5) {
-      const int g = tile * 32 + lane;  // the lane's rays 4g..4g+3
-      const float4 a = four(p.sx, g, o.vec_in);
-      const float4 b = four(p.sy, g, o.vec_in);
-      const float4 e = p.use_dof ? four(p.u1, g, o.vec_in) : float4{};
-      const float4 f = p.use_dof ? four(p.u2, g, o.vec_in) : float4{};
-      const float sx[4] = {a.x, a.y, a.z, a.w}, sy[4] = {b.x, b.y, b.z, b.w};
-      const float u1[4] = {e.x, e.y, e.z, e.w}, u2[4] = {f.x, f.y, f.z, f.w};
-      float lx[4], ly[4], dx[4], dy[4], nz[4], w[4];
-      int t[4];
+  const Exposure x = exposure_factors(o.exposure);
+  const int max_tries = p.max_total - 1;
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int tiles = o.vec ? p.B / kTile : 0;
+  // a warp's tile as it is stored: origin's 96 float4, then dir's
+  __shared__ float4 staged[kBlock / 32][2 * 96];
+  float4* mine = staged[threadIdx.x >> 5];
+  Counts c;
+  // the warp's index is uniform across its lanes, so every lane of a warp
+  // runs the same tiles and the ballots see all 32
+  for (int tile = first >> 5; tile < tiles; tile += stride >> 5) {
+    const int g = tile * 32 + lane;  // the lane's rays 4g..4g+3
+    const float4 a = four(p.sx, g, o.vec_in);
+    const float4 b = four(p.sy, g, o.vec_in);
+    const float4 e = p.use_dof ? four(p.u1, g, o.vec_in) : float4{};
+    const float4 f = p.use_dof ? four(p.u2, g, o.vec_in) : float4{};
+    const float sx[4] = {a.x, a.y, a.z, a.w}, sy[4] = {b.x, b.y, b.z, b.w};
+    const float u1[4] = {e.x, e.y, e.z, e.w}, u2[4] = {f.x, f.y, f.z, f.w};
+    float lx[4], ly[4], dx[4], dy[4], nz[4], w[4];
+    int t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const Ray r = camera_ray(4 * g + k, sx[k], sy[k], u1[k], u2[k], p);
+      lx[k] = r.lx;
+      ly[k] = r.ly;
+      dx[k] = r.dx;
+      dy[k] = r.dy;
+      nz[k] = -r.dz;
+      t[k] = r.tries;
+      w[k] = ray_weight(r.tries, 0, max_tries, p.use_dof, x, c);
+    }
+    reinterpret_cast<float4*>(o.weight)[g] =
+        make_float4(w[0], w[1], w[2], w[3]);
+    // bit l of retried[k]: ray 4l + k of the tile was retried
+    const unsigned all = 0xffffffffu;
+    const unsigned retried[4] = {
+        __ballot_sync(all, t[0] > 0), __ballot_sync(all, t[1] > 0),
+        __ballot_sync(all, t[2] > 0), __ballot_sync(all, t[3] > 0)};
+    // the lane's 12 floats of origin and of dir, floats 12l..12l+11 of
+    // the tile's 384
+    __syncwarp();  // the last tile's float4s have been read
+    mine[3 * lane + 0] = make_float4(lx[0], ly[0], 0.0f, lx[1]);
+    mine[3 * lane + 1] = make_float4(ly[1], 0.0f, lx[2], ly[2]);
+    mine[3 * lane + 2] = make_float4(0.0f, lx[3], ly[3], 0.0f);
+    mine[96 + 3 * lane + 0] = make_float4(dx[0], dy[0], nz[0], dx[1]);
+    mine[96 + 3 * lane + 1] = make_float4(dy[1], nz[1], dx[2], dy[2]);
+    mine[96 + 3 * lane + 2] = make_float4(nz[2], dx[3], dy[3], nz[3]);
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int u = 32 * q + lane;  // float4 u of the tile's 96
+      const int64_t v = (int64_t)tile * 96 + u;
+      const float4 of4 = mine[u];
+      const float4 df4 = mine[96 + u];
+      const float of[4] = {of4.x, of4.y, of4.z, of4.w};
+      const float df[4] = {df4.x, df4.y, df4.z, df4.w};
+      float oo[4], dd[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const Ray r = camera_ray(4 * g + k, sx[k], sy[k], u1[k], u2[k], p);
-        lx[k] = r.lx;
-        ly[k] = r.ly;
-        dx[k] = r.dx;
-        dy[k] = r.dy;
-        nz[k] = -r.dz;
-        t[k] = r.tries;
-        w[k] = ray_weight(r.tries, 0, max_tries, p.use_dof, x, c);
+        const int r = (4 * u + k) / 3;  // the float's ray in the tile
+        const unsigned bits = (r & 3) == 0   ? retried[0]
+                              : (r & 3) == 1 ? retried[1]
+                              : (r & 3) == 2 ? retried[2]
+                                             : retried[3];
+        const bool on = (bits >> (r >> 2)) & 1u;
+        oo[k] = on ? of[k] : 0.0f;
+        dd[k] = on ? df[k] : 0.0f;
       }
-      reinterpret_cast<float4*>(o.weight)[g] =
-          make_float4(w[0], w[1], w[2], w[3]);
-      // bit l of retried[k]: ray 4l + k of the tile was retried
-      const unsigned all = 0xffffffffu;
-      const unsigned retried[4] = {
-          __ballot_sync(all, t[0] > 0), __ballot_sync(all, t[1] > 0),
-          __ballot_sync(all, t[2] > 0), __ballot_sync(all, t[3] > 0)};
-      // the lane's 12 floats of origin and of dir, floats 12l..12l+11 of
-      // the tile's 384
-      __syncwarp();  // the last tile's float4s have been read
-      mine[3 * lane + 0] = make_float4(lx[0], ly[0], 0.0f, lx[1]);
-      mine[3 * lane + 1] = make_float4(ly[1], 0.0f, lx[2], ly[2]);
-      mine[3 * lane + 2] = make_float4(0.0f, lx[3], ly[3], 0.0f);
-      mine[96 + 3 * lane + 0] = make_float4(dx[0], dy[0], nz[0], dx[1]);
-      mine[96 + 3 * lane + 1] = make_float4(dy[1], nz[1], dx[2], dy[2]);
-      mine[96 + 3 * lane + 2] = make_float4(nz[2], dx[3], dy[3], nz[3]);
-      __syncwarp();
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const int u = 32 * q + lane;  // float4 u of the tile's 96
-        const int64_t v = (int64_t)tile * 96 + u;
-        const float4 of4 = mine[u];
-        const float4 df4 = mine[96 + u];
-        const float of[4] = {of4.x, of4.y, of4.z, of4.w};
-        const float df[4] = {df4.x, df4.y, df4.z, df4.w};
-        float oo[4], dd[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int r = (4 * u + k) / 3;  // the float's ray in the tile
-          const unsigned bits = (r & 3) == 0   ? retried[0]
-                                : (r & 3) == 1 ? retried[1]
-                                : (r & 3) == 2 ? retried[2]
-                                               : retried[3];
-          const bool on = (bits >> (r >> 2)) & 1u;
-          oo[k] = on ? of[k] : 0.0f;
-          dd[k] = on ? df[k] : 0.0f;
-        }
-        reinterpret_cast<float4*>(o.origin)[v] = of4;
-        reinterpret_cast<float4*>(o.dir)[v] = df4;
-        reinterpret_cast<float4*>(o.d_ody)[v] =
-            make_float4(oo[0], oo[1], oo[2], oo[3]);
-        reinterpret_cast<float4*>(o.d_ddy)[v] =
-            make_float4(dd[0], dd[1], dd[2], dd[3]);
-      }
+      reinterpret_cast<float4*>(o.origin)[v] = of4;
+      reinterpret_cast<float4*>(o.dir)[v] = df4;
+      reinterpret_cast<float4*>(o.d_ody)[v] =
+          make_float4(oo[0], oo[1], oo[2], oo[3]);
+      reinterpret_cast<float4*>(o.d_ddy)[v] =
+          make_float4(dd[0], dd[1], dd[2], dd[3]);
     }
-    for (int i = tiles * kTile + first; i < p.B; i += stride) {
-      const Ray r = camera_ray(i, p);
-      o.weight[i] = ray_weight(r.tries, 0, max_tries, p.use_dof, x, c);
-      const bool on = r.tries > 0;
-      const float of[3] = {r.lx, r.ly, 0.0f};
-      const float df[3] = {r.dx, r.dy, -r.dz};
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int64_t j = 3 * (int64_t)i + k;
-        o.origin[j] = of[k];
-        o.dir[j] = df[k];
-        o.d_ody[j] = on ? of[k] : 0.0f;
-        o.d_ddy[j] = on ? df[k] : 0.0f;
-      }
-    }
-    add_counts(c, o.stats);
   }
+  for (int i = tiles * kTile + first; i < p.B; i += stride) {
+    const Ray r = camera_ray(i, p);
+    o.weight[i] = ray_weight(r.tries, 0, max_tries, p.use_dof, x, c);
+    const bool on = r.tries > 0;
+    const float of[3] = {r.lx, r.ly, 0.0f};
+    const float df[3] = {r.dx, r.dy, -r.dz};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int64_t j = 3 * (int64_t)i + k;
+      o.origin[j] = of[k];
+      o.dir[j] = df[k];
+      o.d_ody[j] = on ? of[k] : 0.0f;
+      o.d_ddy[j] = on ? df[k] : 0.0f;
+    }
+  }
+  add_counts(c, o.stats);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -326,40 +308,12 @@ bool planes_ok(const float* bu1, const float* bu2, int has_ov,
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() as an int (0 = success).
-// The camera scalars (tan_fov, aperture_radius, focal_distance, ov_distance,
-// ov_radius) come by value.  bu1/bu2 ([n_planes, bp]) are read only when
-// presampled and has_ov are both set.
-extern "C" int zoic_thinlens_launch(
-    const float* sx, const float* sy, const float* u1, const float* u2,
-    const float* bu1, const float* bu2, float tan_fov, float aperture_radius,
-    float focal_distance, float ov_distance, float ov_radius, float* origin,
-    float* dir, int* tries, int B, int use_dof, int has_ov, int presampled,
-    int max_total, int seed, int n_planes, int bp, int tile_rows,
-    int plane_tiles, int reuse, void* stream) {
-  if (B <= 0) return 0;
-  if (!planes_ok(bu1, bu2, has_ov, presampled, n_planes, bp, tile_rows,
-                 plane_tiles))
-    return (int)cudaErrorInvalidValue;
-  const Params p{sx, sy, u1, u2, bu1, bu2, tan_fov, aperture_radius,
-                 focal_distance, ov_distance, ov_radius, B, max_total, seed,
-                 n_planes, bp, tile_rows, plane_tiles, use_dof != 0,
-                 has_ov != 0, presampled != 0, reuse != 0};
-  Out o{};
-  o.origin = origin;
-  o.dir = dir;
-  o.tries = tries;
-  const int grid = (B + kBlock - 1) / kBlock;
-  thinlens_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p, o);
-  return (int)cudaGetLastError();
-}
-
-// Blocks of the instance that writes finished rays that one SM holds at a
-// time, or -1 on a failed query; the wrapper sizes its grid with it.
+// Blocks of the kernel that one SM holds at a time, or -1 on a failed
+// query; the wrapper sizes its grid with it.
 extern "C" int zoic_thinlens_rays_blocks_per_sm() {
   int n = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, thinlens_kernel<true>, kBlock, 0) != cudaSuccess)
+          &n, thinlens_kernel, kBlock, 0) != cudaSuccess)
     return -1;
   return n;
 }
@@ -367,9 +321,11 @@ extern "C" int zoic_thinlens_rays_blocks_per_sm() {
 // The thin lens's whole kernel path: zero stats ([4] int32) and launch
 // `grid` blocks on `stream` that write origin, dir, d_ody, d_ddy ([B, 3]),
 // weight ([B]) and the four counters; returns the first CUDA error as an
-// int (0 = success).  The arguments as zoic_thinlens_launch's, with
-// max_total = max_tries + 1; exposure is one float in device memory,
-// read on the card.
+// int (0 = success).  The camera scalars (tan_fov, aperture_radius,
+// focal_distance, ov_distance, ov_radius) come by value; bu1/bu2
+// ([n_planes, bp]) are read only when presampled and has_ov are both set;
+// max_total = max_tries + 1; exposure is one float in device memory, read
+// on the card.
 extern "C" int zoic_thinlens_rays_launch(
     const float* sx, const float* sy, const float* u1, const float* u2,
     const float* bu1, const float* bu2, float tan_fov, float aperture_radius,
@@ -401,7 +357,7 @@ extern "C" int zoic_thinlens_rays_launch(
           aligned16(d_ody) && aligned16(d_ddy);
   o.vec_in = aligned16(sx) && aligned16(sy) &&
              (!use_dof || (aligned16(u1) && aligned16(u2)));
-  thinlens_kernel<true><<<grid, kBlock, 0, s>>>(p, o);
+  thinlens_kernel<<<grid, kBlock, 0, s>>>(p, o);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,13 @@
 """What every kernel wrapper of the port does around its launch: bind the
-library's C function once, check the flat inputs, allocate the outputs,
-launch on PyTorch's current stream and raise on a launch error.
+library's C function once, ask the card's occupancy once, check the flat
+inputs, allocate the outputs, launch on PyTorch's current stream and raise
+on a launch error.
 
 The wrappers (:func:`ops.trace_kernel.raytraced_fused`,
-:func:`ops.trace_kernel.thinlens_fused`,
 :func:`ops.trace_kernel.thinlens_rays`,
 :func:`ops.bokeh_kernel.sample_fused`,
 :func:`ops.bokeh_kernel.planes_fused`) keep what is theirs: the tables of
-their state, their arguments and their launch counter.
+their state, their arguments, their grid and their launch counter.
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ Tensor = torch.Tensor
 COUNT_DEFINE = "ZOIC_COUNT_LANES"
 
 _BOUND: dict = {}
+# (name, symbol, defines, query arguments, device index) -> (SMs, blocks
+# per SM)
+_PER_SM: dict = {}
 
 
 def _raw_stream(index: int) -> int:
@@ -49,6 +52,32 @@ def bind(name: str, symbol: str, argtypes: Sequence, *,
             fn.restype = ctypes.c_int
             _BOUND[key] = fn
     return fn
+
+
+def blocks_per_sm(name: str, symbol: str, argtypes: Sequence,
+                  dev: torch.device, *args,
+                  defines: Sequence[str] = ()) -> Tuple[int, int]:
+    """``(SMs, blocks per SM)`` of ``dev``'s card for the kernel behind the
+    occupancy query ``symbol(*args)`` of ``csrc/<name>.cu``: asked once
+    per arguments and card, in the span ``zoic.kernel.load``.  Raises when
+    the query gives less than one block (no such instance, no block fits
+    an SM, or the query failed)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (name, symbol, tuple(defines), args, index)
+    hit = _PER_SM.get(key)
+    if hit is None:
+        with span("zoic.kernel.load"):
+            fn = bind(name, symbol, argtypes, defines=defines)
+            with torch.cuda.device(index):
+                per_sm = fn(*args)
+            if per_sm < 1:
+                raise RuntimeError(
+                    f"{name} kernel: {symbol}{args} gave {per_sm}: no such "
+                    f"instance, no block fits an SM, or the query failed")
+            sms = torch.cuda.get_device_properties(
+                index).multi_processor_count
+            hit = _PER_SM[key] = (sms, per_sm)
+    return hit
 
 
 def check_flat(named: Sequence[Tuple[str, Tensor]],

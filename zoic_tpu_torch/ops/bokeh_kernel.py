@@ -252,10 +252,8 @@ def persistent_grid(n: int, sm_count: int, blocks_per_sm: int,
 # (id(image), device, planes) -> (weakref(image), packed tables or
 # PlaneTables on the device): made once per image, not once per call
 _TABLES: dict = {}
-# device index -> (SMs, opt-in shared memory a block)
+# device index -> opt-in shared memory a block
 _CARD: dict = {}
-# (device index, shared, hash, smem bytes) -> blocks per SM
-_BLOCKS_PER_SM: dict = {}
 
 
 def _kernel_tables(image: BokehImage, dev, planes: bool):
@@ -283,32 +281,22 @@ def _plan(image: BokehImage, n: int, hash_: bool, dev):
     tables = _kernel_tables(image, dev, hash_)
     packed = tables.words if hash_ else tables
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    card = _CARD.get(index)
-    if card is None:
+    limit = _CARD.get(index)
+    if limit is None:
         with span("zoic.kernel.load"), torch.cuda.device(index):
             limit = _launch.bind("bokeh", "zoic_bokeh_smem_limit", [])()
         if limit < 0:
             raise RuntimeError("bokeh kernel: shared-memory limit query failed")
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-        card = _CARD[index] = (sms, limit)
-    shared = uses_smem(image.height, image.width, card[1], hash_)
+        _CARD[index] = limit
+    shared = uses_smem(image.height, image.width, limit, hash_)
     smem = 4 * packed.numel() if shared else 0
-    key = (index, shared, hash_, smem)
-    per_sm = _BLOCKS_PER_SM.get(key)
-    if per_sm is None:
-        with span("zoic.kernel.load"):
-            fn = _launch.bind("bokeh", "zoic_bokeh_blocks_per_sm",
-                              [ctypes.c_int] * 3)
-            with torch.cuda.device(index):
-                per_sm = fn(int(shared), int(hash_), smem)
-        if per_sm < 1:
-            raise RuntimeError(f"bokeh kernel: no block fits an SM with "
-                               f"{smem} bytes of tables ({per_sm})")
-        _BLOCKS_PER_SM[key] = per_sm
+    sms, per_sm = _launch.blocks_per_sm(
+        "bokeh", "zoic_bokeh_blocks_per_sm", [ctypes.c_int] * 3, dev,
+        int(shared), int(hash_), smem)
     if hash_:
         return tables, shared, persistent_grid(
-            n, card[0], 1 if shared else per_sm, PLANE_BLOCK)
-    return tables, shared, persistent_grid(n, card[0], per_sm)
+            n, sms, 1 if shared else per_sm, PLANE_BLOCK)
+    return tables, shared, persistent_grid(n, sms, per_sm)
 
 
 _SAMPLE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6

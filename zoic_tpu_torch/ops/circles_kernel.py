@@ -1,20 +1,23 @@
-"""The pupil pre-check's circle fit on the card: the wrapper of
-``csrc/circles.cu`` and the host steps around it.
+"""The pupil pre-check's circle fit: its host steps, the wrappers of the
+two reductions of ``csrc/circles.cu`` and their plain numpy versions.
 
 The kernel replaces no TPU kernel: the JAX package fits the 2-circle cover
 on the host in numpy (``zoic_tpu/pupil.py:_fit_circles_np`` and the
-smoothing loop of ``build_precheck``), and the port keeps that numpy as its
-plain version (``pupil._fit_circles_np``, ``pupil._reach_np``).  Of the fit,
-two reductions are large: the reach of the 241 candidate centres over each
-key's accepted cover samples (a float64 ``[accepted x 241]`` matrix a key
-in numpy) and the joint pass counts of every (negative, positive) centre
-pair over a subsample.  :func:`fit_circles` and :func:`reach_at` run them
-on the card for CUDA tensors, where the cover traces already lie, and keep
-on the host, in numpy, what is small and defines bits: the radii ``rk =
-sqrt(m2) * 1.01 + 0.005``, their squares, ``q = rk ** 2 - a ** 2``, the
+smoothing loop of ``build_precheck``).  Of the fit, two reductions are
+large: the reach of the 241 candidate centres over each key's accepted
+cover samples (a float64 ``[accepted x 241]`` matrix a key in numpy) and
+the joint pass counts of every (negative, positive) centre pair over a
+subsample.  :func:`fit_circles` writes the fit once: the two reductions
+run on the card for CUDA tensors, where the cover traces already lie
+(:func:`reach`, :func:`pick`), and in numpy for CPU tensors
+(:func:`reach_plain`, :func:`pick_plain`); what is small and defines bits
+stays on the host in numpy on both: the radii ``rk = sqrt(m2) * 1.01 +
+0.005``, their squares, the pair's centres, ``q = rk ** 2 - a ** 2``, the
 reject-all keys.  The kernel rounds every float64 step as numpy does, so
-the fit is bit-equal to the plain version.  CPU tensors run the plain
-version itself.
+the fit on the card is bit-equal to the fit on the host.
+:func:`reach_at` is the smoothing loop's reach at a key's own centres,
+through the same reach entry, and :func:`reach_at_plain` its plain
+version.
 """
 
 from __future__ import annotations
@@ -38,6 +41,14 @@ _PICK_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
 # most centres the reach entry takes (its block size)
 MAX_CENTRES = 256
+
+# the fit's knobs, as in zoic_tpu/pupil.py
+CIRCLE_CENTERS = 241          # x-axis centre grid over [-3, 3]
+CIRCLE_SEL_SAMPLES = 12_500   # subsample for the pair-selection pass
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
 
 
 def _check(*named) -> Tuple[int, int]:
@@ -93,6 +104,21 @@ def reach(lx: Tensor, ly: Tensor, ok: Tensor, centres: Tensor) -> np.ndarray:
     return m2.cpu().numpy()
 
 
+def reach_plain(lx, ly, ok, centres) -> np.ndarray:
+    """Plain numpy version of :func:`reach` for tensors on any device (or
+    arrays): the same ``m2``, ``(px - centres) ** 2 + py ** 2`` over each
+    key's accepted samples at once."""
+    lxn, lyn, okn = _host(lx), _host(ly), _host(ok)
+    cen = _host(centres)
+    cen = np.broadcast_to(cen, (okn.shape[0], cen.shape[-1]))
+    m2 = np.full(cen.shape, -1.0)
+    for k in np.where(okn.any(1))[0]:
+        px, py = lxn[k][okn[k]], lyn[k][okn[k]]
+        d2 = (px[:, None] - cen[k][None, :]) ** 2 + (py**2)[:, None]
+        m2[k] = d2.max(0)
+    return m2
+
+
 def pick(lx: Tensor, ly: Tensor, rk2: np.ndarray, cand: np.ndarray,
          negi: np.ndarray, posi: np.ndarray,
          stride: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -124,48 +150,71 @@ def pick(lx: Tensor, ly: Tensor, rk2: np.ndarray, cand: np.ndarray,
             (packed & np.uint64(0xFFFFFFFF)).astype(np.int64))
 
 
-def _fit_on_card(lx: Tensor, ly: Tensor, ok: Tensor):
-    """:func:`fit_circles` through the two entries: ``pupil._fit_circles_np``
-    with its two reductions on the card and every other step as it is
-    there, in numpy on the host."""
-    from ..pupil import _CIRCLE_CENTERS, _CIRCLE_SEL_SAMPLES
+def pick_plain(lx, ly, rk2: np.ndarray, cand: np.ndarray, negi: np.ndarray,
+               posi: np.ndarray, stride: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain numpy version of :func:`pick` for tensors on any device (or
+    arrays), as the JAX package's fit counts: the joint pass counts a
+    float32 product of 0/1 matrices (exact below 2**24 samples) and its
+    ``argmin`` (the first flat index among equal counts)."""
+    lxn, lyn = _host(lx), _host(ly)
+    count = np.empty(lxn.shape[0], np.int64)
+    flat = np.empty(lxn.shape[0], np.int64)
+    for k in range(lxn.shape[0]):
+        sx, sy = lxn[k][::stride], lyn[k][::stride]
+        ds = (sx[:, None] - cand[None, :]) ** 2 + (sy**2)[:, None]
+        inside = (ds <= rk2[k][None, :]).astype(np.float32)
+        joint = inside[:, negi].T @ inside[:, posi]  # [Nn, Np] pass counts
+        flat[k] = joint.argmin()
+        count[k] = joint.flat[flat[k]]
+    return count, flat
 
+
+def fit_circles(lx: Tensor, ly: Tensor, ok: Tensor):
+    """Per-key 2-circle intersection cover of the accepted cover samples
+    ``ok`` of ``(lx, ly)``, ``[K, N]`` each.  For each key, picks x-axis
+    centres ``(a1 <= 0, a2 >= 0)`` minimising the estimated candidate pass
+    rate, with radii covering EVERY accepted sample plus the (x1.01,
+    +0.005) margin.  Returns float64 arrays ``(a1, q1, a2, q2)`` with ``q_j
+    = r_j^2 - a_j^2``; keys with no accepted sample get the reject-all
+    circle (a=0, q=-1).  CUDA tensors run the two reductions on the card
+    (a reach and a pick launch), CPU tensors in numpy; the bits are the
+    same."""
+    card = lx.device.type == "cuda"
+    if card:
+        lx, ly, ok = lx.contiguous(), ly.contiguous(), ok.contiguous()
     n_keys, n_s = ok.shape
-    cand = np.linspace(-3.0, 3.0, _CIRCLE_CENTERS)
+    cand = np.linspace(-3.0, 3.0, CIRCLE_CENTERS)
     negi = np.where(cand <= 0.0)[0]
     posi = np.where(cand >= 0.0)[0]
-    stride = max(1, n_s // _CIRCLE_SEL_SAMPLES)
-    m2 = reach(lx, ly, ok, torch.from_numpy(cand).to(lx.device))
+    stride = max(1, n_s // CIRCLE_SEL_SAMPLES)
+    # covering radius per candidate centre, over ALL accepted samples
+    m2 = (reach if card else reach_plain)(
+        lx, ly, ok, torch.from_numpy(cand).to(lx.device))
     live = np.where(m2[:, 0] >= 0.0)[0]
     rk = np.zeros((n_keys, cand.size))
     rk2 = np.zeros((n_keys, cand.size))
     for k in live:
         rk[k] = np.sqrt(m2[k]) * 1.01 + 0.005
         rk2[k] = rk[k][None, :] ** 2
-    _, flat = pick(lx, ly, rk2, cand, negi, posi, stride)
+    # pair selection on a subsample of ALL candidates (soundness does not
+    # depend on this step, only the radii above bound anything): the card
+    # picks for every key in one launch, the host for the live keys alone
+    if card:
+        flat = pick(lx, ly, rk2, cand, negi, posi, stride)[1][live]
+    else:
+        rows = torch.from_numpy(live)
+        flat = pick_plain(lx[rows], ly[rows], rk2[live], cand, negi, posi,
+                          stride)[1]
     a1 = np.zeros(n_keys)
     q1 = np.full(n_keys, -1.0)
     a2 = np.zeros(n_keys)
     q2 = np.full(n_keys, -1.0)
-    for k in live:
-        bi, bj = negi[flat[k] // posi.size], posi[flat[k] % posi.size]
+    for k, f in zip(live, flat):
+        bi, bj = negi[f // posi.size], posi[f % posi.size]
         a1[k], a2[k] = cand[bi], cand[bj]
         q1[k] = rk[k][bi] ** 2 - a1[k] ** 2
         q2[k] = rk[k][bj] ** 2 - a2[k] ** 2
     return a1, q1, a2, q2
-
-
-def fit_circles(lx: Tensor, ly: Tensor, ok: Tensor):
-    """Per-key 2-circle cover of the accepted cover samples ``ok`` of
-    ``(lx, ly)``, ``[K, N]`` each: ``(a1, q1, a2, q2)`` float64 arrays as
-    ``pupil._fit_circles_np`` returns them, bit for bit.  CUDA tensors
-    launch ``csrc/circles.cu`` (a reach and a pick); CPU tensors run
-    ``pupil._fit_circles_np``."""
-    if lx.device.type == "cuda":
-        return _fit_on_card(lx.contiguous(), ly.contiguous(), ok.contiguous())
-    from ..pupil import _fit_circles_np, _np
-
-    return _fit_circles_np(_np(lx), _np(ly), _np(ok))
 
 
 def reach_at(lx: Tensor, ly: Tensor, ok: Tensor,
@@ -174,11 +223,15 @@ def reach_at(lx: Tensor, ly: Tensor, ok: Tensor,
     centres[k, j]) ** 2 + ly ** 2`` as numpy rounds it, -1 where the key
     has none: the smoothing loop's reach at a key's own centres, float64
     ``[K, J]``.  CUDA tensors launch the reach entry; CPU tensors run
-    ``pupil._reach_np``."""
+    :func:`reach_at_plain`."""
     if lx.device.type == "cuda":
         return reach(lx.contiguous(), ly.contiguous(), ok.contiguous(),
                      torch.from_numpy(np.ascontiguousarray(
                          centres, np.float64)).to(lx.device))
-    from ..pupil import _np, _reach_np
+    return reach_at_plain(lx, ly, ok, centres)
 
-    return _reach_np(_np(lx), _np(ly), _np(ok), centres)
+
+def reach_at_plain(lx, ly, ok, centres: np.ndarray) -> np.ndarray:
+    """Plain numpy version of :func:`reach_at` for tensors on any device:
+    :func:`reach_plain` at the keys' own centres."""
+    return reach_plain(lx, ly, ok, np.asarray(centres, np.float64))

@@ -21,16 +21,16 @@ direction:
 * the counters: successes, vignetted rays, the TIR sum and the tries sum,
   int32.
 
-The pinhole (``count_weight=False``) keeps weight 1 before the exposure
-and counts neither successes nor vignetted rays; without ``tir`` (the thin
-lens) the TIR counter is 0.
-
 :func:`epilogue_fused` launches ``csrc/epilogue.cu`` for CUDA tensors (the
 counter buffer zeroed and the one pass: two device operations, no read
 back) and runs :func:`epilogue_plain`, the composition of
 :func:`weight_and_stats`, :func:`apply_exposure` and
 :func:`fake_derivatives`, for CPU tensors.  The eager path of the models
-runs that composition itself.
+runs that composition itself.  :func:`epilogue_plain` also takes the thin
+lens's two modes, which its kernel computes in its own final store: the
+pinhole (``count_weight=False``) keeps weight 1 before the exposure and
+counts neither successes nor vignetted rays, and without ``tir`` the TIR
+counter is 0.
 """
 
 from __future__ import annotations
@@ -103,15 +103,14 @@ def epilogue_plain(
     return weight, d_ody, d_ddy, stats
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def _check(tries, tir, origin, direction, exposure):
     """Hold the kernel's inputs to one device, their types, shapes and
     contiguity; returns ``(B, device, exposure)``, the exposure as a 0-d
     float32 tensor on the device (the state's own tensor when it is one)."""
-    named = [("tries", tries)] + ([] if tir is None else [("tir", tir)])
-    b, dev = _launch.check_flat(named, torch.int32)
+    b, dev = _launch.check_flat((("tries", tries), ("tir", tir)), torch.int32)
     for name, t in (("origin", origin), ("direction", direction)):
         if t.device != dev or t.dtype != torch.float32 or t.shape != (b, 3):
             raise ValueError(
@@ -133,11 +132,11 @@ def exposure_on(exposure, dev: torch.device) -> Tensor:
 
 
 def epilogue_fused(
-    tries: Tensor, tir: Optional[Tensor], origin: Tensor, direction: Tensor,
-    exposure: Tensor, max_tries: int, *, count_weight: bool = True,
+    tries: Tensor, tir: Tensor, origin: Tensor, direction: Tensor,
+    exposure: Tensor, max_tries: int,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """The epilogue over a camera kernel's flat outputs: ``tries`` i32[B],
-    ``tir`` i32[B] or None, ``origin`` and ``direction`` f32[B,3], the
+    """The epilogue over the raytraced kernel's flat outputs: ``tries`` and
+    ``tir`` i32[B], ``origin`` and ``direction`` f32[B,3], the
     state's 0-d ``exposure``.  Returns ``(weight f32[B], d_ody f32[B,3],
     d_ddy f32[B,3], stats i32[4])``, ``stats`` holding success, vignetted,
     tir and tries_total (``RayStats`` takes 0-d views of it).  CUDA
@@ -147,7 +146,7 @@ def epilogue_fused(
     with span("zoic.epilogue"):
         if tries.device.type == "cpu":
             return epilogue_plain(tries, tir, origin, direction, exposure,
-                                  max_tries, count_weight=count_weight)
+                                  max_tries)
         if tries.device.type != "cuda":
             raise ValueError(f"unsupported device {tries.device}")
         b, dev, exposure = _check(tries, tir, origin, direction, exposure)
@@ -156,11 +155,10 @@ def epilogue_fused(
             ((b, 3), torch.float32), ((4,), torch.int32))
         _launch.launch(
             _launch.bind("epilogue", "zoic_epilogue_launch", _ARGTYPES),
-            "epilogue", dev, tries.data_ptr(),
-            tir.data_ptr() if tir is not None else None, origin.data_ptr(),
-            direction.data_ptr(), exposure.data_ptr(), weight.data_ptr(),
-            d_ody.data_ptr(), d_ddy.data_ptr(), stats.data_ptr(), b,
-            max_tries, int(count_weight),
+            "epilogue", dev, tries.data_ptr(), tir.data_ptr(),
+            origin.data_ptr(), direction.data_ptr(), exposure.data_ptr(),
+            weight.data_ptr(), d_ody.data_ptr(), d_ddy.data_ptr(),
+            stats.data_ptr(), b, max_tries,
         )
         if b > 0:
             launches += 1

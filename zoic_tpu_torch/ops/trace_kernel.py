@@ -29,18 +29,17 @@ together; :func:`persistent_grid` sizes it) and runs
 runs the same rounds over the pending rays as tensor ops, in the kernel's
 order of operations.
 
-Port of ``zoic_tpu/ops/trace_kernel.py:thinlens_fused``: the pinhole
+Port of ``zoic_tpu/ops/trace_kernel.py:_thinlens_kernel``: the pinhole
 direction, the depth-of-field refocus and the empirical-vignetting retry
 rounds.  Round 0 takes the caller's draws; round ``rnd`` (1-based) draws a
 pending ray's aperture point from the counter hash keyed by (ray id, seed,
 ``rnd``), or, with image bokeh, reads it from the presampled retry planes
-through :func:`retry_plane_index`.  :func:`thinlens_fused` launches
-``csrc/thinlens.cu`` for CUDA tensors and runs :func:`thinlens_plain` for
-CPU tensors.  :func:`thinlens_rays`, the thin-lens model's kernel path,
-launches the same kernel's second instance, which also computes the
-epilogue (weight, exposure, derivatives, counters) in its final store, and
-runs :func:`thinlens_rays_plain` (:func:`thinlens_plain`, then
-``epilogue_plain``) for CPU tensors.
+through :func:`retry_plane_index`.  :func:`thinlens_plain` is the camera
+kernel's plain version.  :func:`thinlens_rays`, the thin-lens model's
+kernel path, launches ``csrc/thinlens.cu``, which also computes the
+epilogue (weight, exposure, derivatives, counters) in its final store, for
+CUDA tensors, and runs :func:`thinlens_rays_plain` (:func:`thinlens_plain`,
+then ``epilogue_plain``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -61,10 +60,7 @@ Tensor = torch.Tensor
 
 # launches of the CUDA kernel by raytraced_fused (plain CPU runs not counted)
 launches = 0
-# launches of the CUDA kernel by thinlens_fused (plain CPU runs not counted)
-thinlens_launches = 0
-# launches of the CUDA kernel's instance that writes finished rays, by
-# thinlens_rays (plain CPU runs not counted)
+# launches of the CUDA kernel by thinlens_rays (plain CPU runs not counted)
 thinlens_rays_launches = 0
 
 # table capacities of csrc/raytraced.cu (its parameter and shared memory)
@@ -451,8 +447,8 @@ def retry_plane_layout(b: int, bp: int,
     default tile (``DEF_TILE_ROWS`` thin lens, ``DEF_RT_TILE_ROWS``
     raytraced).
 
-    The tile is halved while the batch fits in half a tile
-    (``thinlens_fused``, ``raytraced_fused``); planes shorter than a tile
+    The tile is halved while the batch fits in half a tile (the JAX
+    package's wrappers of both kernels); planes shorter than a tile
     wrap to ``plane_tiles`` whole tiles (``_prep_retry_planes``); ``reuse``
     says whether grid tiles share plane blocks, which adds the per-reuse
     rotation."""
@@ -748,33 +744,6 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
         return tables
 
 
-# (variant word, counting build, device index) -> (SMs, blocks per SM)
-_BLOCKS_PER_SM: dict = {}
-
-
-def _grid(b: int, word: int, count: bool, dev) -> int:
-    """The persistent grid for ``b`` rays on ``dev``: the instance's blocks
-    per SM, asked of the library once, times the card's SMs."""
-    defines = (_launch.COUNT_DEFINE,) if count else ()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (word, count, index)
-    hit = _BLOCKS_PER_SM.get(key)
-    if hit is None:
-        with span("zoic.kernel.load"):
-            fn = _launch.bind("raytraced", "zoic_raytraced_blocks_per_sm",
-                              [ctypes.c_int], defines=defines)
-            with torch.cuda.device(index):
-                per_sm = fn(word)
-            if per_sm < 1:
-                raise RuntimeError(
-                    f"raytraced kernel: no instance for variant word {word}, "
-                    f"or its occupancy query failed ({per_sm})")
-            sms = torch.cuda.get_device_properties(
-                index).multi_processor_count
-            hit = _BLOCKS_PER_SM[key] = (sms, per_sm)
-    return persistent_grid(b, *hit)
-
-
 def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
                       max_tries, use_lut, use_profile, presampled, retry_u1,
                       retry_u2, count=False):
@@ -799,9 +768,9 @@ def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
         ((b,), torch.int32), ((b,), torch.int32))
     if b == 0:
         return origin, direction, tries, tir
+    defines = (_launch.COUNT_DEFINE,) if count else ()
     fn = _launch.bind("raytraced", "zoic_raytraced_launch",
-                      _RAYTRACED_ARGTYPES,
-                      defines=(_launch.COUNT_DEFINE,) if count else ())
+                      _RAYTRACED_ARGTYPES, defines=defines)
     _launch.launch(
         fn, "raytraced", dev,
         sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(),
@@ -811,7 +780,10 @@ def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
         tir.data_ptr(),
         b, elems.shape[0], shap.shape[0], prof.shape[1], v.iris_idx,
         max_tries + 1, seed, word, PRECHECK_DRAWS, n_planes, bp,
-        tile_rows, plane_tiles, int(reuse), _grid(b, word, count, dev),
+        tile_rows, plane_tiles, int(reuse),
+        persistent_grid(b, *_launch.blocks_per_sm(
+            "raytraced", "zoic_raytraced_blocks_per_sm", [ctypes.c_int], dev,
+            word, defines=defines)),
     )
     return origin, direction, tries, tir
 
@@ -988,18 +960,6 @@ def thinlens_scalars(tan_fov, aperture_radius, focal_distance, ov_distance,
     return floats
 
 
-_THINLENS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 5
-                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
-                      + [ctypes.c_void_p])
-
-
-def _check_thin(sx, sy, u1, u2):
-    """Hold the thin-lens kernel's flat inputs to one device, float32, one
-    shape and contiguity; returns ``(B, device)``."""
-    return _launch.check_flat(
-        (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
-
-
 def _plane_args(b, dev, presampled, has_ov, retry_u1, retry_u2):
     """The retry planes' arguments of a thin-lens launch: ``(bu1 pointer,
     bu2 pointer, n_planes, bp, tile_rows, plane_tiles, reuse)``, null and
@@ -1014,86 +974,8 @@ def _plane_args(b, dev, presampled, has_ov, retry_u1, retry_u2):
              plane_tiles, int(reuse)), (bu1, bu2))
 
 
-def _thinlens_launch(sx, sy, u1, u2, scalars, seed, *, use_dof, has_ov,
-                     max_tries, presampled, retry_u1, retry_u2, count=False):
-    """Check, allocate and launch ``csrc/thinlens.cu`` (its lane-counting
-    build with ``count``); returns ``(origin, dir, tries)``."""
-    seed = _check_seed(seed)
-    b, dev = _check_thin(sx, sy, u1, u2)
-    (bu1, bu2, *layout), _planes = _plane_args(
-        b, dev, presampled, has_ov, retry_u1, retry_u2)
-    origin, direction, tries = _launch.empty(
-        dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
-        ((b,), torch.int32))
-    if b == 0:
-        return origin, direction, tries
-    fn = _launch.bind("thinlens", "zoic_thinlens_launch", _THINLENS_ARGTYPES,
-                      defines=(_launch.COUNT_DEFINE,) if count else ())
-    _launch.launch(
-        fn, "thinlens", dev,
-        sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(), bu1, bu2,
-        *scalars, origin.data_ptr(), direction.data_ptr(), tries.data_ptr(),
-        b, int(use_dof), int(has_ov), int(presampled), max_tries + 1,
-        seed, *layout,
-    )
-    return origin, direction, tries
-
-
-def thinlens_fused(
-    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
-    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int, *,
-    use_dof: bool, has_ov: bool, max_tries: int, presampled: bool = False,
-    retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """Fused thin-lens camera-ray generation over flat ``[B]`` inputs.
-
-    Returns ``(origin[B,3], dir[B,3], tries[B] i32)``.  With
-    ``presampled`` the ``(u1, u2)`` inputs are [-1, 1] aperture offsets
-    (image bokeh) and, with vignetting, retry draws come from the
-    ``[P, Bp]`` planes ``retry_u1/retry_u2``.  CUDA tensors launch
-    ``csrc/thinlens.cu``; CPU tensors run :func:`thinlens_plain`."""
-    global thinlens_launches
-    with span("zoic.thinlens"):
-        scal = (tan_fov, aperture_radius, focal_distance, ov_distance,
-                ov_radius)
-        flags = dict(use_dof=use_dof, has_ov=has_ov, max_tries=max_tries,
-                     presampled=presampled, retry_u1=retry_u1,
-                     retry_u2=retry_u2)
-        if sx.device.type == "cpu":
-            return thinlens_plain(sx, sy, u1, u2, *scal, seed, **flags)
-        if sx.device.type != "cuda":
-            raise ValueError(f"unsupported device {sx.device}")
-        out = _thinlens_launch(sx, sy, u1, u2, thinlens_scalars(*scal), seed,
-                               **flags)
-        if sx.shape[0] > 0:
-            thinlens_launches += 1
-        return out
-
-
-def thinlens_lane_use(
-    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
-    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int,
-    **flags,
-) -> Tuple[Tuple[Tensor, Tensor, Tensor], dict]:
-    """:func:`thinlens_fused` through the kernel's lane-counting build, on
-    CUDA tensors: its outputs, and ``attempts`` (lanes that entered an
-    aperture attempt) and ``warp_attempts`` (converged groups of a warp
-    that did): their ratio is the mean active lanes per attempt."""
-    flags = dict(dict(presampled=False, retry_u1=None, retry_u2=None),
-                 **flags)
-    _launch.reset_counts("thinlens")
-    out = _thinlens_launch(
-        sx, sy, u1, u2,
-        thinlens_scalars(tan_fov, aperture_radius, focal_distance,
-                         ov_distance, ov_radius), seed, count=True, **flags)
-    lanes, warps = _launch.read_counts("thinlens", 2)
-    return out, {"attempts": lanes, "warp_attempts": warps}
-
-
-# ------------------------------------- the thin lens's whole kernel path
-
-# threads of a block of csrc/thinlens.cu (kBlock), and the rays a warp of
-# its finished rays' instance takes a step (kTile)
+# threads of a block of csrc/thinlens.cu (kBlock), and the rays a warp
+# takes a step (kTile)
 THINLENS_BLOCK = 256
 THINLENS_TILE = 128
 
@@ -1109,30 +991,6 @@ def thinlens_grid(b: int, sm_count: int, blocks_per_sm: int) -> int:
     least one."""
     step = THINLENS_BLOCK // 32 * THINLENS_TILE
     return max(1, min(sm_count * blocks_per_sm, -(-b // step)))
-
-
-# device index -> (SMs, blocks per SM of the instance)
-_RAYS_BLOCKS_PER_SM: dict = {}
-
-
-def _rays_grid(b: int, dev) -> int:
-    """:func:`thinlens_grid` on ``dev``: the instance's blocks per SM, asked
-    of the library once, times the card's SMs."""
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    hit = _RAYS_BLOCKS_PER_SM.get(index)
-    if hit is None:
-        with span("zoic.kernel.load"):
-            fn = _launch.bind("thinlens", "zoic_thinlens_rays_blocks_per_sm",
-                              [])
-            with torch.cuda.device(index):
-                per_sm = fn()
-            if per_sm < 1:
-                raise RuntimeError(
-                    f"thinlens kernel: the occupancy query failed ({per_sm})")
-            sms = torch.cuda.get_device_properties(
-                index).multi_processor_count
-            hit = _RAYS_BLOCKS_PER_SM[index] = (sms, per_sm)
-    return thinlens_grid(b, *hit)
 
 
 def thinlens_rays_plain(
@@ -1157,6 +1015,34 @@ def thinlens_rays_plain(
     return origin, direction, weight, d_ody, d_ddy, stats
 
 
+def _thinlens_rays_launch(sx, sy, u1, u2, scalars, seed, exposure, b, dev,
+                          *, use_dof, has_ov, max_tries, presampled,
+                          retry_u1, retry_u2, count=False):
+    """Allocate and launch ``csrc/thinlens.cu`` (its lane-counting build
+    with ``count``) on checked inputs; returns ``(origin, dir, weight,
+    d_ody, d_ddy, stats)``."""
+    defines = (_launch.COUNT_DEFINE,) if count else ()
+    (bu1, bu2, *layout), _planes = _plane_args(
+        b, dev, presampled, has_ov, retry_u1, retry_u2)
+    out = _launch.empty(
+        dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
+        ((b,), torch.float32), ((b, 3), torch.float32),
+        ((b, 3), torch.float32), ((4,), torch.int32))
+    grid = thinlens_grid(b, *_launch.blocks_per_sm(
+        "thinlens", "zoic_thinlens_rays_blocks_per_sm", [], dev,
+        defines=defines))
+    _launch.launch(
+        _launch.bind("thinlens", "zoic_thinlens_rays_launch",
+                     _THINLENS_RAYS_ARGTYPES, defines=defines),
+        "thinlens", dev,
+        sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(), bu1,
+        bu2, *scalars, exposure.data_ptr(), *(t.data_ptr() for t in out), b,
+        int(use_dof), int(has_ov), int(presampled), max_tries + 1, seed,
+        *layout, grid,
+    )
+    return out
+
+
 def thinlens_rays(
     sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
     aperture_radius, focal_distance, ov_distance, ov_radius, seed: int,
@@ -1164,18 +1050,20 @@ def thinlens_rays(
     presampled: bool = False, retry_u1: Optional[Tensor] = None,
     retry_u2: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """The thin lens's finished rays over flat ``[B]`` inputs, as
-    :func:`thinlens_fused` and ``epilogue_fused`` give them in turn, in one
+    """The thin lens's finished rays over flat ``[B]`` inputs: the camera
+    kernel's rays (:func:`thinlens_plain`) and their epilogue, in one
     launch.
 
     ``exposure`` is the state's 0-d exposure tensor.  Returns
     ``(origin[B,3], dir[B,3], weight[B], d_ody[B,3], d_ddy[B,3], stats
     i32[4])``, ``stats`` holding success, vignetted, tir (0) and
     tries_total.  The inputs are held to one device, float32, one shape
-    and contiguity on every device.  CUDA tensors launch the instance of
-    ``csrc/thinlens.cu`` that writes finished rays (the counter buffer
-    zeroed, then the kernel: no pass reads the rays back), which reads the
-    exposure on the card; CPU tensors run :func:`thinlens_rays_plain`."""
+    and contiguity on every device.  With ``presampled`` the ``(u1, u2)``
+    inputs are [-1, 1] aperture offsets (image bokeh) and, with vignetting,
+    retry draws come from the ``[P, Bp]`` planes ``retry_u1/retry_u2``.
+    CUDA tensors launch ``csrc/thinlens.cu`` (the counter buffer zeroed,
+    then the kernel: no pass reads the rays back), which reads the exposure
+    on the card; CPU tensors run :func:`thinlens_rays_plain`."""
     global thinlens_rays_launches
     with span("zoic.thinlens"):
         scal = (tan_fov, aperture_radius, focal_distance, ov_distance,
@@ -1184,28 +1072,40 @@ def thinlens_rays(
                      presampled=presampled, retry_u1=retry_u1,
                      retry_u2=retry_u2)
         seed = _check_seed(seed)
-        b, dev = _check_thin(sx, sy, u1, u2)
+        b, dev = _launch.check_flat(
+            (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {dev}")
         exposure = exposure_on(exposure, dev)
         if dev.type == "cpu":
             return thinlens_rays_plain(sx, sy, u1, u2, *scal, seed, exposure,
                                        **flags)
-        (bu1, bu2, *layout), _planes = _plane_args(
-            b, dev, presampled, has_ov, retry_u1, retry_u2)
-        out = _launch.empty(
-            dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
-            ((b,), torch.float32), ((b, 3), torch.float32),
-            ((b, 3), torch.float32), ((4,), torch.int32))
-        _launch.launch(
-            _launch.bind("thinlens", "zoic_thinlens_rays_launch",
-                         _THINLENS_RAYS_ARGTYPES),
-            "thinlens", dev,
-            sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(), bu1,
-            bu2, *thinlens_scalars(*scal), exposure.data_ptr(),
-            *(t.data_ptr() for t in out), b, int(use_dof), int(has_ov),
-            int(presampled), max_tries + 1, seed, *layout, _rays_grid(b, dev),
-        )
+        out = _thinlens_rays_launch(sx, sy, u1, u2, thinlens_scalars(*scal),
+                                    seed, exposure, b, dev, **flags)
         if b > 0:
             thinlens_rays_launches += 1
         return out
+
+
+def thinlens_lane_use(
+    sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor, tan_fov,
+    aperture_radius, focal_distance, ov_distance, ov_radius, seed: int,
+    exposure: Tensor, **flags,
+) -> Tuple[Tuple[Tensor, ...], dict]:
+    """:func:`thinlens_rays` through the kernel's lane-counting build, on
+    CUDA tensors: its outputs, and ``attempts`` (lanes that entered an
+    aperture attempt) and ``warp_attempts`` (converged groups of a warp
+    that did): their ratio is the mean active lanes per attempt."""
+    flags = dict(dict(presampled=False, retry_u1=None, retry_u2=None),
+                 **flags)
+    seed = _check_seed(seed)
+    b, dev = _launch.check_flat(
+        (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
+    _launch.reset_counts("thinlens")
+    out = _thinlens_rays_launch(
+        sx, sy, u1, u2,
+        thinlens_scalars(tan_fov, aperture_radius, focal_distance,
+                         ov_distance, ov_radius), seed,
+        exposure_on(exposure, dev), b, dev, count=True, **flags)
+    lanes, warps = _launch.read_counts("thinlens", 2)
+    return out, {"attempts": lanes, "warp_attempts": warps}

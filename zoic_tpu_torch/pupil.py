@@ -11,10 +11,10 @@ Port of what ``zoic_tpu.compile_camera`` reaches in ``zoic_tpu/pupil.py``:
 * :func:`build_precheck` — the pupil pre-check bound: three cover traces (fit,
   held-out, key midpoints) under the active sampling cover on the device,
   then the JAX package's numpy float64 fits of the harmonic polar bound and
-  the 2-circle cover (its two large reductions in ``csrc/circles.cu`` for
-  CUDA tensors, bit-equal: ``ops/circles_kernel.py``), held-out loosening,
-  the tighter form kept, and its polynomial form (:func:`fit_profile_poly`,
-  :func:`_poly_interval_max`);
+  the 2-circle cover (``ops/circles_kernel.fit_circles``: its two large
+  reductions in ``csrc/circles.cu`` for CUDA tensors, bit-equal), held-out
+  loosening, the tighter form kept, and its polynomial form
+  (:func:`fit_profile_poly`, :func:`_poly_interval_max`);
 * :func:`dead_film_fraction`;
 
 and what the exact eager path and the tests reach:
@@ -62,9 +62,8 @@ POLY_DEGREE = 6          # profile-poly fit degree (7 Horner coefficients)
 POLY_MAX_DEFICIT = 0.02  # use the poly in-kernel only when the raw fit is at
 #                          least this tight (rho units)
 
-# Circle-cover fit knobs (build_precheck), as in zoic_tpu/pupil.py
-_CIRCLE_CENTERS = 241         # x-axis center grid over [-3, 3]
-_CIRCLE_SEL_SAMPLES = 12_500  # subsample for the pair-selection pass
+# degree of the circle cover's polynomial form (build_precheck), as in
+# zoic_tpu/pupil.py; the fit's own knobs are in ops/circles_kernel.py
 CIRCLE_POLY_DEGREE = 8
 
 
@@ -494,58 +493,6 @@ def _cover_trace(lens: LensSystem, radii: Tensor, u: Tensor, domain: str):
     return lx, ly, ok
 
 
-def _fit_circles_np(lxn, lyn, okn):
-    """Per-key 2-circle intersection cover of the accepted support (numpy,
-    host side).  For each key, picks x-axis centers ``(a1 <= 0, a2 >= 0)``
-    minimizing the estimated candidate pass rate, with radii covering EVERY
-    accepted sample plus the (x1.01, +0.005) margin.  Returns (a1, q1, a2,
-    q2) arrays with ``q_j = r_j^2 - a_j^2``; keys with no accepted samples
-    get the reject-all circle (a=0, q=-1)."""
-    n_keys, n_s = okn.shape
-    cand = np.linspace(-3.0, 3.0, _CIRCLE_CENTERS)
-    negi = np.where(cand <= 0.0)[0]
-    posi = np.where(cand >= 0.0)[0]
-    sel = slice(None, None, max(1, n_s // _CIRCLE_SEL_SAMPLES))
-    a1 = np.zeros(n_keys)
-    q1 = np.full(n_keys, -1.0)
-    a2 = np.zeros(n_keys)
-    q2 = np.full(n_keys, -1.0)
-    for k in range(n_keys):
-        m = okn[k]
-        if not m.any():
-            continue  # reject-all
-        px = lxn[k][m]
-        py = lyn[k][m]
-        # covering radius per candidate center, over ALL accepted samples
-        d2 = (px[:, None] - cand[None, :]) ** 2 + (py**2)[:, None]
-        rk = np.sqrt(d2.max(0)) * 1.01 + 0.005
-        # pair selection on a subsample of ALL candidates (soundness does
-        # not depend on this step — only the radii above bound anything)
-        sx = lxn[k][sel]
-        sy = lyn[k][sel]
-        ds = (sx[:, None] - cand[None, :]) ** 2 + (sy**2)[:, None]
-        inside = (ds <= (rk[None, :] ** 2)).astype(np.float32)
-        joint = inside[:, negi].T @ inside[:, posi]  # [Nn, Np] pass counts
-        flat = int(joint.argmin())
-        bi, bj = negi[flat // posi.size], posi[flat % posi.size]
-        a1[k], a2[k] = cand[bi], cand[bj]
-        q1[k] = rk[bi] ** 2 - a1[k] ** 2
-        q2[k] = rk[bj] ** 2 - a2[k] ** 2
-    return a1, q1, a2, q2
-
-
-def _reach_np(lxn, lyn, okn, centres):
-    """The smoothing loop's reach (numpy, host side): ``m2[k, j]``, the max
-    over key ``k``'s accepted samples of ``(lx - centres[k, j]) ** 2 +
-    ly ** 2``, -1 where the key has none."""
-    m2 = np.full(centres.shape, -1.0)
-    for k in np.where(okn.any(1))[0]:
-        px, py = lxn[k][okn[k]], lyn[k][okn[k]]
-        for j, a in enumerate(centres[k]):
-            m2[k, j] = ((px - a) ** 2 + py**2).max()
-    return m2
-
-
 def _circle_viol(a1, q1, a2, q2, lxn, lyn, okn):
     """Per-key q loosening needed so every accepted sample passes BOTH
     circles: max over accepted of (rho^2 - 2 a_j lx - q_j), per circle,
@@ -675,7 +622,7 @@ def build_precheck(
 
     # --- circle fit ------------------------------------------------------
     with span("zoic.precheck.circles"):
-        # CUDA tensors fit on the card (ops/circles_kernel.py), bit-equal
+        # CUDA tensors run the fit's reductions on the card, bit-equal
         a1, q1, a2, q2 = circles_kernel.fit_circles(lx, ly, ok)
         if lut is None:
             # rotation-invariant for the naive cover (see harmonic note)

@@ -94,8 +94,11 @@ def main(argv=None) -> None:
     packed, shared, grid = bokeh_kernel._plan(image, b, False, dev)
     sample = _launch.bind("bokeh", "zoic_bokeh_launch",
                           bokeh_kernel._SAMPLE_ARGTYPES)
-    per_sm = _launch.bind("bokeh", "zoic_bokeh_blocks_per_sm",
-                          [ctypes.c_int] * 3)
+    def per_sm(shared: int, hash_: int, smem: int) -> int:
+        return _launch.blocks_per_sm(
+            "bokeh", "zoic_bokeh_blocks_per_sm", [ctypes.c_int] * 3, dev,
+            shared, hash_, smem)[1]
+
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def launch(smem: bool, blocks: int):

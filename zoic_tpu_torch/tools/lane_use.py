@@ -17,7 +17,9 @@ end one JSON line:
 * ``device_ms``: the main build's time per launch, CUDA events around a
   bare loop of launches on the same inputs;
 * ``equal``: the counting build's ``tries``/``tir`` equal the main
-  build's on every ray.
+  build's on every ray (for the thin lens, every output of
+  ``thinlens_rays``: its warps take tiles of 128 rays, four a lane, so a
+  warp's attempts are those of four groups of 32 rays).
 
     python -m zoic_tpu_torch.tools.lane_use [--batch 4194304] [--seed 7]
 """
@@ -99,18 +101,19 @@ def thinlens_row(b: int, seed: int, dev) -> dict:
     st = zt.compile_camera(cfg, dev)
     sx, sy, lx, ly = draws(b, seed, dev)
     args = (sx, sy, lx, ly, st.tan_fov, st.aperture_radius,
-            st.focal_distance, st.ov_distance, st.ov_radius, seed)
+            st.focal_distance, st.ov_distance, st.ov_radius, seed,
+            st.exposure_control)
     kw = dict(use_dof=True, has_ov=True, max_tries=MAX_TRIES)
     out, n = trace_kernel.thinlens_lane_use(*args, **kw)
-    ref = trace_kernel.thinlens_fused(*args, **kw)
+    ref = trace_kernel.thinlens_rays(*args, **kw)
     warps = -(-b // 32)
     return {
         "attempts_per_ray": n["attempts"] / b,
         "warp_attempts_per_warp": n["warp_attempts"] / warps,
         "lanes_per_warp_attempt": n["attempts"] / max(1, n["warp_attempts"]),
         "device_ms": device_ms(
-            lambda: trace_kernel.thinlens_fused(*args, **kw)),
-        "equal": bool(torch.equal(out[2], ref[2])),
+            lambda: trace_kernel.thinlens_rays(*args, **kw)),
+        "equal": all(torch.equal(a, r) for a, r in zip(out, ref)),
     }
 
 
