@@ -77,16 +77,17 @@ they draw and trace, on five cameras) gives the main build's tries.
 Phases, one line each: the device; the kernel builds (eight ``nvcc``
 runs in parallel: six sources, the two camera kernels' counting builds);
 then per camera the run through ``create_rays`` checked for launches (a
-raytraced camera: one camera kernel and one epilogue; a thin lens: one
-launch of its kernel, which writes finished rays, and no epilogue),
-finite outputs and its run counters, the kernel against its plain PyTorch
-version on the same inputs (the raytraced camera's epilogue kernel, which
-computes weight, exposure, fake derivatives and the four counters in one
-pass, against its plain version on that kernel's outputs bit for bit,
-also at exposure +-0.5, with tries at ``max_tries + 1``, and on the
-ragged batches; the thin-lens kernel against its plain version, the
-camera kernel's then the epilogue's, bit for bit at its exposure and at
-+-0.5), and timings with
+raytraced camera or a thin lens: one launch of its kernel, which writes
+finished rays, and no epilogue), finite outputs and its run counters, the
+kernel against its plain PyTorch version on the same inputs (the
+raytraced kernel's finished rays, weight, exposure, fake derivatives and
+the four counters, bit for bit against the plain epilogue on the same
+kernel's tries and tir, at its exposure and at +-0.5, and on the ragged
+batches; the epilogue kernel, which computes them in a pass of its own,
+against its plain version on that kernel's outputs bit for bit, also at
+exposure +-0.5 and with tries at ``max_tries + 1``; the thin-lens kernel
+against its plain version, the camera kernel's then the epilogue's, bit
+for bit at its exposure and at +-0.5), and timings with
 CUDA events and, for the kernel's own time on the card, torch.profiler,
 with the call's device time split per kernel (a profiler reading is used
 only where its window kept one record per call and events >= card >=
@@ -479,6 +480,7 @@ def reset_counts(trace_kernel, bokeh_kernel, roofline_kernel=None) -> None:
 
     epilogue_kernel.launches = 0
     trace_kernel.launches = 0
+    trace_kernel.raytraced_rays_launches = 0
     trace_kernel.thinlens_rays_launches = 0
     bokeh_kernel.launches = 0
     bokeh_kernel.plane_launches = 0
@@ -613,6 +615,41 @@ def epilogue_vs_plain(name, tries, tir, origin, direction, exposure,
     return out
 
 
+def finished_vs_plain(trace_kernel, name, args, kw, fused, exposure,
+                      max_tries, tag):
+    """The raytraced kernel's finished rays (``raytraced_rays``) against
+    the plain epilogue on the same kernel's rays (``fused``, from
+    ``raytraced_fused``) bit for bit, every output and the four counters:
+    at the state's exposure and at +0.5 and -0.5; two launches must give
+    the same bits.  Prints one line under ``tag``."""
+    from zoic_tpu_torch.ops import epilogue_kernel as ek
+
+    dev = args[1].device
+    cases = [("the state's exposure", exposure)] + [
+        (f"exposure {e:+}", torch.tensor(e, dtype=torch.float32, device=dev))
+        for e in (0.5, -0.5)]
+    origin, direction, tries, tir = fused
+    stats, first = {}, None
+    for label, ex in cases:
+        k = trace_kernel.raytraced_rays(*args, ex, **kw)
+        p = (origin, direction) + ek.epilogue_plain(
+            tries, tir, origin, direction, ex, max_tries)
+        torch.cuda.synchronize()
+        stats[label] = k[5].tolist()
+        check(bits_equal(k, p), f"{name}: the finished rays and the plain "
+              f"epilogue on the kernel's rays differ ({label}): stats "
+              f"{k[5].tolist()} vs {p[5].tolist()}")
+        first = first or k
+    again = trace_kernel.raytraced_rays(*args, exposure, **kw)
+    check(bits_equal(again, first),
+          f"{name}: two launches of the finished rays differ")
+    print(f"[{tag}] B = {tries.numel()}: origin, dir, weight, dOdy, dDdy "
+          f"and the counters bit-equal to the plain epilogue on the "
+          f"kernel's rays in {len(cases)} cases (stats {stats}); two "
+          f"launches bit-equal", flush=True)
+    return first
+
+
 def rays_vs_plain(trace_kernel, name, args, kw, exposure, tag):
     """The thin lens's whole kernel path (``thinlens_rays``) against its
     plain version (``thinlens_rays_plain``: the camera kernel's plain
@@ -660,12 +697,14 @@ def fresh_inputs(state, cfg, tg: torch.Generator, dev):
 
 def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
                     smi, tags, time_plain=True, headline=False):
-    """Drive one raytraced camera through create_rays, check the run, hold
-    the kernel and the epilogue kernel against their plain versions on the
-    same inputs, seed and retry planes, and time kernel, create_rays and,
-    with ``time_plain``, the plain version.  ``tags`` label the three
-    lines; the headline camera is also held to its attempts/ray and
-    vignetted fraction, and its epilogue timed."""
+    """Drive one raytraced camera through create_rays, check the run (one
+    launch of the kernel writing finished rays, no epilogue), hold the
+    kernel, its finished rays and the epilogue kernel against their plain
+    versions on the same inputs, seed and retry planes, and time the
+    kernel in both of its modes, create_rays and, with ``time_plain``, the
+    plain version.  ``tags`` label the lines; the headline camera is also
+    held to its attempts/ray and vignetted fraction, and its epilogue
+    timed."""
     from zoic_tpu_torch.models import raytraced as rt_model
     from zoic_tpu_torch.ops import epilogue_kernel as ek
 
@@ -682,10 +721,13 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
         torch.cuda.synchronize()
     finally:
         trace_kernel.hash_uniform = eager_hash
-    n_launch, n_bokeh = trace_kernel.launches, bokeh_kernel.launches
+    n_launch, n_bokeh = (trace_kernel.raytraced_rays_launches,
+                         bokeh_kernel.launches)
     n_planes, n_epilogue = bokeh_kernel.plane_launches, ek.launches
-    check(n_launch > 0, f"{name}: no raytraced kernel launch")
-    check(n_epilogue == 1, f"{name}: {n_epilogue} epilogue launches")
+    check(n_launch == 1 and trace_kernel.launches == 0,
+          f"{name}: {n_launch} launches of the finished rays, "
+          f"{trace_kernel.launches} of the kernel's tries")
+    check(n_epilogue == 0, f"{name}: {n_epilogue} epilogue launches")
     check(trace_kernel.thinlens_rays_launches == 0,
           f"{name}: a thinlens kernel launched")
     check(n_bokeh == int(cfg.use_image),
@@ -712,7 +754,7 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     check(bool(live.any()), f"{name}: no live ray")
     norm_err = float((rays.dir[live].norm(dim=1) - 1.0).abs().max())
     check(norm_err < 1e-4, f"{name}: live directions not unit: {norm_err}")
-    print(f"[{tags[0]}] launches raytraced {n_launch} bokeh {n_bokeh} "
+    print(f"[{tags[0]}] launches raytraced_rays {n_launch} bokeh {n_bokeh} "
           f"planes {n_planes} epilogue {n_epilogue}, eager hashes 0; "
           f"success {success} vignetted {vig} tir {int(stats.tir)}; "
           f"attempts/ray {attempts:.6f}; vignetted frac {vig_frac:.6f}; "
@@ -726,6 +768,11 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
                           tags[1], MAX_TRIES_MISMATCH)
     ko, kd, kt, ktir = cmp["out"]
     max_abs_err, mismatch = cmp["max_abs_err"], cmp["mismatches"]
+    finished_vs_plain(trace_kernel, name, args, kw, cmp["out"],
+                      state.exposure_control, cfg.max_tries,
+                      tags[1].replace("kernel vs plain",
+                                      "finished rays vs plain"))
+    n_before = ek.launches
     epi = epilogue_vs_plain(
         name, kt, ktir, ko, kd, state.exposure_control, cfg.max_tries,
         tags[1].replace("kernel vs plain", "epilogue vs plain"),
@@ -739,8 +786,13 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
         return (*draws(tg, BATCH, dev),
                 int(torch.randint(0, 1 << 22, (), generator=tg, device=dev)))
 
+    exposure = state.exposure_control
     timed = {"kernel": time_ms(
-        lambda *a: trace_kernel.raytraced_fused(*a[:7], **a[7]), fresh)}
+        lambda *a: trace_kernel.raytraced_fused(*a[:7], **a[7]), fresh),
+             "finished": time_ms(
+        lambda *a: trace_kernel.raytraced_rays(*a[:7], exposure, **a[7]),
+        fresh)}
+    n_epilogue_tests = ek.launches - n_before
     if time_plain:
         timed["plain"] = time_ms(
             lambda *a: trace_kernel.raytraced_plain(*a[:7], **a[7]), fresh)
@@ -752,22 +804,30 @@ def raytraced_phase(zt, trace_kernel, bokeh_kernel, name, state, cfg, dev,
     dev_ms = card_reading(
         lambda: trace_kernel.raytraced_fused(*args, **kw), "raytraced_kernel",
         statistics.median(timed["kernel"]), rt_bound[0], tags[2])
+    finished_ms = card_reading(
+        lambda: trace_kernel.raytraced_rays(*args, exposure, **kw),
+        "raytraced_kernel", statistics.median(timed["finished"]),
+        rt_bound[0], tags[2])
     split = card_reading(
         lambda: zt.create_rays(state, cfg, sx, sy, lx, ly, seed=seed),
         "raytraced_kernel", statistics.median(timed["create_rays"]),
         rt_bound[0], tags[2], whole_call=True)
     print(f"[{tags[2]}] median of 10 (3 warm-up), B = {BATCH}, on {smi}: "
-          + median_line(timed) + f"; kernel on the card {card_text(dev_ms)} "
+          + median_line(timed) + f"; kernel on the card {card_text(dev_ms)}"
+          f", writing finished rays {card_text(finished_ms)} "
           f"(profiler, {PROFILED_CALLS} launches; bound {rt_bound[0]:.4f} ms,"
           f" {rt_bound[1]}); two launches bit-equal; "
           + split_text(split, "raytraced_kernel"), flush=True)
     return {"launches": n_launch, "bokeh_launches": n_bokeh,
-            "plane_launches": n_planes, "epilogue_launches": n_epilogue,
+            "plane_launches": n_planes,
+            "epilogue_launches": n_epilogue_tests,
             "epilogue": epi, "split": split, "bytes": n_bytes,
             "max_abs_err": max_abs_err, "mismatches": mismatch,
             "attempts": attempts, "vignetted_frac": vig_frac,
             "kernel_ms": statistics.median(timed["kernel"]),
             "device_ms": dev_ms,
+            "finished_ms": statistics.median(timed["finished"]),
+            "finished_device_ms": finished_ms,
             "plain_ms": (statistics.median(timed["plain"])
                          if time_plain else None),
             "create_rays_ms": statistics.median(timed["create_rays"])}
@@ -794,7 +854,8 @@ def thinlens_phase(zt, trace_kernel, bokeh_kernel, name, cfg, dev, smi,
     n_epilogue = ek.launches
     check(n_rays == 1, f"{name}: {n_rays} launches of the thin-lens kernel")
     check(n_epilogue == 0, f"{name}: {n_epilogue} epilogue launches")
-    check(trace_kernel.launches == 0, f"{name}: a raytraced kernel launched")
+    check(trace_kernel.launches + trace_kernel.raytraced_rays_launches == 0,
+          f"{name}: a raytraced kernel launched")
     check((n_bokeh > 0) == cfg.use_image,
           f"{name}: {n_bokeh} bokeh launches with use_image={cfg.use_image}")
     for f in ("origin", "dir", "weight", "d_ody", "d_ddy"):
@@ -1053,7 +1114,8 @@ def ragged_phase(zt, trace_kernel, name, state, cfg, sizes, dev, tag):
     """The raytraced kernel against its plain version at batches that do not
     fill a warp, a block or the persistent grid: tries and tir equal,
     payloads of live rays within the tolerance, on inputs, seed and (with
-    image bokeh) retry planes made for each size; and the epilogue kernel
+    image bokeh) retry planes made for each size; the kernel's finished
+    rays against the plain epilogue on its rays, and the epilogue kernel
     against its plain version on those outputs, bit for bit."""
     from zoic_tpu_torch.models import raytraced as rt_model
 
@@ -1077,20 +1139,23 @@ def ragged_phase(zt, trace_kernel, name, state, cfg, sizes, dev, tag):
                         float((kd - pd)[live].abs().max()))
         check(worst <= PAYLOAD_ATOL,
               f"{name}: kernel and plain payloads disagree at B = {n}")
+        finished_vs_plain(trace_kernel, name, args, kw, (ko, kd, kt, ktir),
+                          state.exposure_control, cfg.max_tries,
+                          f"{tag} {name} finished rays vs plain")
         epi_err = max(epi_err, epilogue_vs_plain(
             name, kt, ktir, ko, kd, state.exposure_control, cfg.max_tries,
             f"{tag} {name} epilogue vs plain")["max_abs_err"])
     print(f"[{tag} {name} ragged batches] B = {', '.join(map(str, sizes))}: "
           f"tries/tir equal to the plain version's, live max |d| "
-          f"{worst:.3e} (limit {PAYLOAD_ATOL}); the epilogue bit-equal",
-          flush=True)
+          f"{worst:.3e} (limit {PAYLOAD_ATOL}); the finished rays and the "
+          f"epilogue bit-equal", flush=True)
     return epi_err
 
 
 def lane_use_phase(dev, smi, tag):
     """How full the warps are when they draw and trace: the camera kernels'
     counting builds on five raytraced cameras and the thin lens with
-    vignetting, each held to the main build's tries (and tir)."""
+    vignetting, each held to the main build's outputs bit for bit."""
     from zoic_tpu_torch.tools import lane_use
 
     seed = SEED % (1 << 22)
@@ -1101,8 +1166,8 @@ def lane_use_phase(dev, smi, tag):
         print(f"[{tag}.{i} lane use {name}] B = {BATCH}, on {smi}: "
               + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
                           else f"{k} {v}" for k, v in r.items()), flush=True)
-        check(r["equal"], f"{name}: the counting build's tries differ from "
-              "the main build's")
+        check(r["equal"], f"{name}: the counting build's outputs differ "
+              "from the main build's")
     return rows
 
 
@@ -1368,7 +1433,8 @@ def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
     reset_counts(trace_kernel, bokeh_kernel, rk)
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         bench.main(list(BENCH_ARGS))
-    n_rt, n_roof = trace_kernel.launches, rk.launches
+    n_rt = trace_kernel.launches + trace_kernel.raytraced_rays_launches
+    n_roof = rk.launches
     print(err.getvalue().rstrip(), flush=True)
     line = buf.getvalue().strip().splitlines()[-1]
     print(line, flush=True)
@@ -1395,7 +1461,8 @@ def bench_phase(trace_kernel, bokeh_kernel, rk, kind, tag):
 def counts(trace_kernel, bokeh_kernel, rk) -> dict:
     from zoic_tpu_torch.ops import epilogue_kernel
 
-    return {"raytraced": trace_kernel.launches,
+    return {"raytraced": (trace_kernel.launches
+                          + trace_kernel.raytraced_rays_launches),
             "thinlens": trace_kernel.thinlens_rays_launches,
             "bokeh": bokeh_kernel.launches,
             "bokeh_planes": bokeh_kernel.plane_launches,
@@ -1679,7 +1746,8 @@ def eager_phase(zt, kernels, state, dev, smi, tag):
         reset_counts(trace_kernel, bokeh_kernel, rk)
         er, es = zt.create_rays(state, ecfg, *s, seed=seed)
         torch.cuda.synchronize()
-        check(trace_kernel.launches == 0, "impl='jnp' launched a kernel")
+        check(trace_kernel.launches + trace_kernel.raytraced_rays_launches
+              == 0, "impl='jnp' launched a kernel")
         kr, ks = zt.create_rays(state, cfg, *s, seed=seed)
         torch.cuda.synchronize()
         check_rays(f"eager max_tries {budget}", er, es, BATCH)
@@ -1996,9 +2064,8 @@ def examples_phase(zt, kernels, dev, smi, tag):
         torch.cuda.synchronize()
         n = counts(trace_kernel, bokeh_kernel, rk)
         add_counts(launched, n)
-        check(only(n, raytraced=1, epilogue=1),
-              f"demo {name}: launches {n}, not one raytraced launch and "
-              f"one epilogue")
+        check(only(n, raytraced=1),
+              f"demo {name}: launches {n}, not one raytraced launch")
         check_rays(f"demo {name}", res.rays, res.stats, spec.n_samples)
         check(res.image.shape == (spec.height, spec.width)
               and bool(torch.isfinite(res.image).all()),
@@ -2136,9 +2203,8 @@ def entry_phase(zt, kernels, dev, smi, tag):
     check(bits_equal(outs[0], (rays.origin, rays.dir, rays.weight,
                                stats.vignetted)),
           "entry: fn differs from create_rays on the same inputs")
-    check(only(launched, raytraced=3, epilogue=3),
-          f"entry: launches {launched}, not one raytraced launch and one "
-          f"epilogue a call")
+    check(only(launched, raytraced=3),
+          f"entry: launches {launched}, not one raytraced launch a call")
 
     n_cards = torch.cuda.device_count()
     n_sub = min(n_cards, entry.KERNEL_PASS_MAX_DEVICES)
@@ -2150,9 +2216,9 @@ def entry_phase(zt, kernels, dev, smi, tag):
             ("kernel", dry.kernel, entry.RAYS_PER_DEVICE * n_sub)):
         check(int(st.success) + int(st.vignetted) == rays_n,
               f"dryrun {label}: success + vignetted != {rays_n}")
-    check(only(dry_launched, raytraced=n_sub, epilogue=n_sub),
-          f"dryrun: launches {dry_launched}, not one raytraced launch and "
-          f"one epilogue a card of the kernel pass")
+    check(only(dry_launched, raytraced=n_sub),
+          f"dryrun: launches {dry_launched}, not one raytraced launch a "
+          f"card of the kernel pass")
     add_counts(launched, dry_launched)
 
     cases = [("entry", state, entry.config(), (sx, sy, lx, ly), seed)]
@@ -2341,6 +2407,8 @@ def main(argv=None) -> None:
                            + [entry_run["max_abs_err"]]),
         "ms": head["kernel_ms"],
         "device_ms": head["device_ms"],
+        "finished_ms": head["finished_ms"],
+        "finished_device_ms": head["finished_device_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": rt_bound[0],
         "bound_by": rt_bound[1],
@@ -2445,9 +2513,8 @@ def main(argv=None) -> None:
     check(rt["raytraced_bokeh_image"]["bokeh_launches"] > 0
           and entries[2]["launches"] > 0 and entries[3]["launches"] > 0,
           "the bokeh configs launched no bokeh kernel or plane entry")
-    check(entries[5]["launches"] == entries[0]["launches"],
-          "the epilogue did not launch once for each raytraced kernel "
-          "launch of the main paths")
+    check(entries[5]["launches"] > 0,
+          "the epilogue's own checks did not launch it")
     check(entries[1]["launches"] > 0,
           "the thin-lens main paths did not run the thin-lens kernel")
 

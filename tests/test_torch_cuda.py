@@ -148,11 +148,11 @@ def test_create_rays_on_cuda(cuda_state):
     )
     sx, sy, lx, ly = _inputs(65_536, seed=1)
     g = torch.Generator(device="cuda").manual_seed(3)
-    before = tk.launches
+    before = tk.raytraced_rays_launches
     rays, stats = zpt.create_rays(cuda_state, cfg, sx, sy, lx, ly,
                                   generator=g)
     torch.cuda.synchronize()
-    assert tk.launches == before + 1
+    assert tk.raytraced_rays_launches == before + 1
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert bool(torch.isfinite(rays.origin).all())
     assert rays.weight.is_cuda and rays.weight.shape == (65_536,)
@@ -179,12 +179,13 @@ def test_create_rays_takes_columns_of_a_sample_tensor(cuda_state, model):
     sx, sy, lx, ly = _inputs(4_133, seed=2)
     uv, lens = torch.stack([sx, sy], 1), torch.stack([lx, ly], 1)
     assert not uv[:, 0].is_contiguous()
-    before = tk.launches + tk.thinlens_rays_launches
+    before = tk.raytraced_rays_launches + tk.thinlens_rays_launches
     got, gs = zpt.create_rays(st, cfg, uv[:, 0], uv[:, 1], lens[:, 0],
                               lens[:, 1], seed=77)
     want, ws = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=77)
     torch.cuda.synchronize()
-    assert tk.launches + tk.thinlens_rays_launches == before + 2
+    assert tk.raytraced_rays_launches + tk.thinlens_rays_launches == (
+        before + 2)
     assert torch.equal(got.origin, want.origin)
     assert torch.equal(got.dir, want.dir)
     assert torch.equal(got.weight, want.weight)
@@ -199,17 +200,17 @@ def test_create_rays_takes_columns_of_a_sample_tensor(cuda_state, model):
 def test_raytraced_bokeh_create_rays_on_cuda(cuda_dev):
     """The image-bokeh camera end to end: one bokeh launch for the
     attempt-0 offsets, one launch of the plane entry for the retry planes
-    (no eager hash), one raytraced launch."""
+    (no eager hash), one raytraced launch that writes the finished rays."""
     cam = zpt.data.CAMERAS["raytraced_bokeh_image"]
     cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
                            lens_data_path=cam.lens, bokeh_path="disk64.npy",
                            **cam.config_kwargs())
     st = zpt.load_state(zpt.data.state_path(cam.file), device=cuda_dev)
     sx, sy, lx, ly = _inputs(65_536, seed=4)
-    t0, b0, p0 = tk.launches, bk.launches, bk.plane_launches
+    t0, b0, p0 = tk.raytraced_rays_launches, bk.launches, bk.plane_launches
     rays, stats = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=77)
     torch.cuda.synchronize()
-    assert tk.launches == t0 + 1 and bk.launches == b0 + 1
+    assert tk.raytraced_rays_launches == t0 + 1 and bk.launches == b0 + 1
     assert bk.plane_launches == p0 + 1
     assert int(stats.success) + int(stats.vignetted) == 65_536
     assert int(stats.tries_total) > 0
@@ -536,11 +537,11 @@ def test_compile_camera_on_cuda(cuda_dev):
               "profile_domain"):
         assert getattr(st.lens, f) == getattr(ref.lens, f), f
     sx, sy, lx, ly = _inputs(65_536, seed=5)
-    before = tk.launches
+    before = tk.raytraced_rays_launches
     _, stats = zpt.create_rays(st, cfg, sx, sy, lx, ly, seed=11)
     _, ref_stats = zpt.create_rays(ref, cfg, sx, sy, lx, ly, seed=11)
     torch.cuda.synchronize()
-    assert tk.launches == before + 2
+    assert tk.raytraced_rays_launches == before + 2
     att = [1 + int(s.tries_total) / 65_536 for s in (stats, ref_stats)]
     assert abs(att[0] - att[1]) <= 0.02 * att[1]
 
@@ -615,11 +616,11 @@ def test_eager_path_matches_kernel_on_card(cuda_state):
     within 1e-5 on rays alive in both; no kernel launches."""
     cfg = _headline_cfg(max_tries=0)
     s = _inputs(100_000, seed=21)
-    before = tk.launches
+    before = tk.launches, tk.raytraced_rays_launches
     er, _ = zpt.create_rays(cuda_state, dataclasses.replace(cfg, impl="jnp"),
                             *s, seed=3)
     torch.cuda.synchronize()
-    assert tk.launches == before
+    assert (tk.launches, tk.raytraced_rays_launches) == before
     kr, _ = zpt.create_rays(cuda_state, cfg, *s, seed=3)
     eok, kok = er.weight > 0, kr.weight > 0
     assert int((eok != kok).sum()) <= 10
@@ -635,11 +636,11 @@ def test_grid_batch_runs_the_kernel_on_card(cuda_state):
     cfg = _headline_cfg(max_tries=25)
     s = _inputs(256 * 384, seed=22)
     flat, fstats = zpt.create_rays(cuda_state, cfg, *s, seed=5)
-    before = tk.launches
+    before = tk.raytraced_rays_launches
     grid, gstats = zpt.create_rays(cuda_state, cfg,
                                    *(a.reshape(256, 384) for a in s), seed=5)
     torch.cuda.synchronize()
-    assert tk.launches == before + 1
+    assert tk.raytraced_rays_launches == before + 1
     assert grid.dir.shape == (256, 384, 3) and grid.weight.shape == (256, 384)
     for f in ("origin", "dir", "weight", "d_ody", "d_ddy"):
         assert torch.equal(getattr(grid, f).reshape(getattr(flat, f).shape),

@@ -286,7 +286,7 @@ def test_non_flat_batch_runs_the_kernel(states, model, monkeypatch,
     if model == "raytraced":
         st = states["headline"][1]
         _, cfg = _raytraced_cfgs("headline", max_tries=3)
-        name = "raytraced_fused"
+        name = "raytraced_rays"
     else:
         _, cfg = _thinlens_cfgs(tmp_path, use_dof=True, max_tries=3,
                                 optical_vignetting_distance=4.0,
@@ -325,6 +325,7 @@ def test_impl_jnp_never_reaches_a_kernel(states, model, monkeypatch,
         raise AssertionError("impl='jnp' reached a kernel wrapper")
 
     monkeypatch.setattr(tk, "raytraced_fused", refuse)
+    monkeypatch.setattr(tk, "raytraced_rays", refuse)
     monkeypatch.setattr(tk, "thinlens_rays", refuse)
     if model == "raytraced":
         st = states["headline"][1]

@@ -117,11 +117,11 @@ def _thinlens_state(**kw):
 @pytest.mark.parametrize("model", ["raytraced", "thinlens", "pinhole"])
 def test_kernel_path_calls_the_epilogue_once(model, monkeypatch):
     """``create_rays``' kernel path runs the epilogue exactly once, its
-    counters as 0-d views of the buffer it returned: the raytraced model
-    through ``epilogue_fused``, the thin lens (and its pinhole) inside
-    ``trace_kernel.thinlens_rays``, its camera kernel's launch, with no
-    ``epilogue_fused`` call; ``impl="jnp"`` composes the plain pieces and
-    calls neither."""
+    counters as 0-d views of the buffer it returned, inside its camera
+    kernel's launch: the raytraced model in ``trace_kernel.raytraced_rays``
+    (with tir), the thin lens (and its pinhole) in
+    ``trace_kernel.thinlens_rays``; neither calls ``epilogue_fused``.
+    ``impl="jnp"`` composes the plain pieces and calls none of them."""
     if model == "raytraced":
         cam = zpt.data.CAMERAS["headline"]
         cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
@@ -133,10 +133,16 @@ def test_kernel_path_calls_the_epilogue_once(model, monkeypatch):
             use_dof=model == "thinlens", optical_vignetting_distance=4.0,
             optical_vignetting_radius=0.6)
     fused, rays, calls, thin = ek.epilogue_fused, tk.thinlens_rays, [], []
+    rt_rays, rt = tk.raytraced_rays, []
 
     def counted(*a, **k):
         out = fused(*a, **k)
         calls.append((a[1] is None, True, out[3]))
+        return out
+
+    def counted_rt(*a, **k):
+        out = rt_rays(*a, **k)
+        rt.append((False, True, out[5]))
         return out
 
     def counted_rays(*a, **k):
@@ -146,15 +152,17 @@ def test_kernel_path_calls_the_epilogue_once(model, monkeypatch):
 
     monkeypatch.setattr(ek, "epilogue_fused", counted)
     monkeypatch.setattr(tk, "thinlens_rays", counted_rays)
+    monkeypatch.setattr(tk, "raytraced_rays", counted_rt)
     rng = np.random.default_rng(3)
     s = [torch.from_numpy(rng.uniform(lo, 1, 300).astype(np.float32))
          for lo in (-1, -1, 0, 0)]
     for impl, n_calls in (("auto", 1), ("jnp", 0)):
-        del calls[:], thin[:]
+        del calls[:], thin[:], rt[:]
         c = dataclasses.replace(cfg, impl=impl)
         _, stats = zpt.create_rays(st, c, *s, seed=5)
-        ran = calls if model == "raytraced" else thin
-        assert len(ran) == n_calls and len(calls + thin) == n_calls, impl
+        ran = rt if model == "raytraced" else thin
+        assert not calls, impl
+        assert len(ran) == n_calls and len(rt + thin) == n_calls, impl
         if n_calls:
             no_tir, count_weight, buf = ran[0]
             assert no_tir == (model != "raytraced")

@@ -201,7 +201,7 @@ def test_create_rays_takes_columns_of_a_sample_tensor(model):
     uv = torch.from_numpy(rng.uniform(-1, 1, (200, 2)).astype(np.float32))
     lens = torch.from_numpy(rng.uniform(0, 1, (200, 2)).astype(np.float32))
     seen = []
-    fused = tk.raytraced_fused if model == "raytraced" else tk.thinlens_rays
+    fused = tk.raytraced_rays if model == "raytraced" else tk.thinlens_rays
     name = fused.__name__
 
     def spy(*args, **kw):

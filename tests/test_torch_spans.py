@@ -33,9 +33,8 @@ CALL = [("zoic.camera.create_rays", None),
         ("zoic.totals", "zoic.camera.create_rays")]
 RAYTRACED = CALL + [("zoic.bokeh.sample", "zoic.kernel_inputs"),
                     ("zoic.bokeh.planes", "zoic.kernel_inputs"),
-                    ("zoic.raytraced", "zoic.create_rays"),
-                    ("zoic.epilogue", "zoic.create_rays")]
-# the thin lens's kernel writes finished rays: no epilogue pass
+                    ("zoic.raytraced", "zoic.create_rays")]
+# both camera kernels write finished rays: no epilogue pass
 THINLENS = CALL + [("zoic.bokeh.sample", "zoic.kernel_inputs"),
                    ("zoic.thinlens.retry_planes", "zoic.kernel_inputs"),
                    ("zoic.bokeh.sample", "zoic.thinlens.retry_planes"),

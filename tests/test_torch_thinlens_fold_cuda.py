@@ -179,9 +179,9 @@ THIN_CAMERAS = {
 @pytest.mark.parametrize("camera", [*THIN_CAMERAS, "raytraced"])
 def test_create_rays_launches(cuda_dev, tmp_path, camera):
     """A thin lens's ``create_rays`` launches its one camera kernel and no
-    epilogue; the raytraced model still launches the epilogue once a call.
-    The thin lens's rays and counters equal the plain composition's on the
-    model's inputs."""
+    epilogue; the raytraced model launches its kernel once a call, writing
+    the finished rays, and no epilogue either.  The thin lens's rays and
+    counters equal the plain composition's on the model's inputs."""
     if camera == "raytraced":
         cfg = zpt.CameraConfig(
             lens_model=zpt.LensModel.RAYTRACED,
@@ -199,15 +199,18 @@ def test_create_rays_launches(cuda_dev, tmp_path, camera):
                                focal_distance=100.0, **kw)
         st = zpt.compile_camera(cfg, cuda_dev)
     args, _ = _inputs(65_536 + 13, {}, cuda_dev)
-    counts = (tk.launches, tk.thinlens_rays_launches, ek.launches)
+    def counts():
+        return (tk.raytraced_rays_launches, tk.launches,
+                tk.thinlens_rays_launches, ek.launches)
+
+    before = counts()
     rays, stats = zpt.create_rays(st, cfg, *args, seed=91)
     torch.cuda.synchronize()
-    moved = [a - b for a, b in zip(
-        (tk.launches, tk.thinlens_rays_launches, ek.launches), counts)]
+    moved = [a - b for a, b in zip(counts(), before)]
     if camera == "raytraced":
-        assert moved == [1, 0, 1]
+        assert moved == [1, 0, 0, 0]
         return
-    assert moved == [0, 1, 0]
+    assert moved == [0, 0, 1, 0]
     sx, sy, lx, ly = args
     planes = {}
     has_ov = cfg.optical_vignetting_distance > 0.0

@@ -1,7 +1,8 @@
-// The epilogue of the raytraced model's kernel path for Hopper (sm_90a):
-// weight, exposure, fake derivatives and the four run counters in one pass.
-// The thin lens's kernel path computes the same in its camera kernel's
-// final store (thinlens.cu, zoic_thinlens_rays_launch).
+// The camera models' epilogue for Hopper (sm_90a), a pass of its own:
+// weight, exposure, fake derivatives and the four run counters.  Both
+// camera kernels compute the same in their own stores (raytraced.cu's
+// finished rays, zoic_raytraced_launch with a weight output; thinlens.cu,
+// zoic_thinlens_rays_launch), so no frame path launches it.
 //
 // Replaces no TPU kernel: the JAX package's create_rays is one jitted
 // program, and XLA fuses this epilogue into it after the Pallas call

@@ -28,7 +28,13 @@
 //   round, pre-check) or rnd - 1 (no pre-check), read at the cell that the
 //   TPU kernel's whole-tile loop gives ray i (plane_cell, common.cuh).
 //   Output: origin = -payload.o, dir = -payload.d of the ray's last trace
-//   (zeros if it never traced), tries, tir.
+//   (-0.0 if it never traced), and either tries and tir (raytraced_fused)
+//   or the finished ray (raytraced_rays): the weight, 0 iff tries >
+//   max_tries, then the exposure read on the card; dOdy, dDdy the origin
+//   and dir of a retried ray (tries > 0), else 0; and the four run
+//   counters (common.cuh), so that no second pass reads the rays back.
+//   The launch picks the outputs by its pointers (weight, tries non-null),
+//   a test that is the same in every lane, so one body serves both.
 //
 // The schedule.  Every draw is a function of the ray, its try count or round,
 // and the batch, so a ray's result does not depend on which lane runs which
@@ -48,37 +54,62 @@
 //               bound;
 //   trace pass: the oldest 32 rays of the trace ring go through the element
 //               stack together and write their payload.
-// A ray whose draw passes the bound joins the trace ring, one whose draw
-// fails (or whose trace failed) joins the draw ring at its next draw, and a
-// ray that comes out of the stack alive, or has spent its budget, writes
-// its tries and tir and is done (zeros for a payload it never had).  A full
+// A ray whose draw passes the bound joins the trace ring, one whose draw fails
+// (or whose trace failed) joins the draw ring at its next draw, and a ray that
+// comes out of the stack alive, or has spent its budget, writes its tries and
+// tir, or its weight, and is done (-0.0 for a payload it never had).  A full
 // pass of either ring goes first; a new tile is taken only while both rings
 // hold fewer than 32 rays, so neither overflows; when the tiles are used up
 // the rings drain in partly filled passes, draws first.  One loop body holds
 // one prologue, one draw, one trace and one store site.  The grid is
 // persistent (blocks per SM from the occupancy query x SMs, capped by the
-// work; the wrapper computes it) so that a warp sees enough tiles to keep
-// its rings full; no global counter, no scratch.
+// work; the wrapper computes it) so that a warp sees enough tiles to keep its
+// rings full; no global counter, no scratch.
 //
 // What bounds it on this card: float compute (53 FADD/FMUL per element with
 // contraction off, the algorithm's count, in a loop of 83 instructions of
 // which 54 are FADD/FMUL: tools/sass_count.py --match ILi15E counts them),
-// with 16 B read and 32 B written per ray, 24 B more per failed trace, plus
-// up to two 4 B plane reads per presampled draw.  The rings (8 KB per warp)
-// hold an SM to 24 warps.  The element rows, flags, polynomial and scalars
-// travel in the kernel's parameter (__grid_constant__, under 3 KB), so every
-// lane reads them as constant-bank operands and two launches in flight on
-// two streams each see their own; only the shaping keys, indexed per ray,
-// sit in shared memory.  Outputs are written by ray id as their rays
-// finish: rays leave a ring in the order they joined it, mostly the order
-// of their ids.
+// with 16 B read and 32 B written per ray (52 B as finished rays), 24 B more
+// per failed trace (48 B), plus up to two 4 B plane reads per presampled draw.
+// The rings (8 KB per warp) hold an SM to 24 warps.  The element rows, flags,
+// polynomial and scalars travel in the kernel's parameter (__grid_constant__,
+// under 3 KB), so every lane reads them as constant-bank operands and two
+// launches in flight on two streams each see their own; only the shaping keys,
+// indexed per ray, sit in shared memory.  Outputs are written by ray id as
+// their rays finish: rays leave a ring in the order they joined it, mostly the
+// order of their ids.
+//
+// Finished rays.  A frame's outputs (about 1 GB at 18.66M rays) outgrow
+// the card's 50 MB L2 many times over, and a ray that finishes passes
+// after its neighbours writes into lines that may have left it partly
+// written: on an NVIDIA H100, the weight and both derivatives stored as
+// such late scattered 4-byte stores cost 0.53 ms a Double Gauss frame
+// against 0.04-0.08 ms as below.  So each is written as most rays end, in
+// the tile pass, where a warp writes its 32 consecutive rays' lines whole:
+// the weights in one coalesced store, each derivative as 24 float4 over
+// the lanes (a live ray's weight exposed(1) and derivatives 0, a dead
+// ray's exposed(0) and -0.0; one ray a lane where the tile is partial or
+// an output is off the 16-byte alignment).  They are written again only
+// where a ray ends otherwise: the derivatives at every trace of a ray that
+// is or will be retried (the payload; a trace that fails is always
+// followed by a draw that consumes a try, as max_total >= 1, so its ray
+// ends retried), the weight when a live ray ends vignetted.  A tile whose
+// 32 rays all take the dead-key exit (one ballot) has constant outputs:
+// its 416 floats of origin, dir, derivatives (-0.0) and weight go out as
+// 104 float4 stores over the lanes, where the five outputs are 16-byte
+// aligned, in place of 13 strided 4-byte stores a lane.  The counters stay
+// in registers through the persistent loop and are reduced once at its end
+// (add_counts: warp, block, one atomicAdd a non-zero counter a block);
+// every lane of a warp leaves the loop together, since the ring positions
+// are the same in every lane.
 //
 // Rounding: built with --fmad=false and IEEE division and square root so
 // that every operation rounds like the eager PyTorch version
 // (zoic_tpu_torch/ops/trace_kernel.py:raytraced_plain), in the same order.
 //
 // Built with ZOIC_COUNT_LANES the kernel also counts the lanes and the
-// converged groups of a warp that enter a trace and that take a draw.
+// converged groups of a warp that enter a trace and that take a draw, and
+// the dead tiles stored whole.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -113,11 +144,15 @@ constexpr int kPresampled = 16; // image-bokeh offsets and retry planes
 
 #ifdef ZOIC_COUNT_LANES
 // Lane-use counters of the counting build: [0] lanes and [1] warps that
-// entered a trace, [2] lanes and [3] warps that took an aperture draw.
-__device__ unsigned long long g_counts[4];
+// entered a trace, [2] lanes and [3] warps that took an aperture draw, [4]
+// the dead tiles stored whole.
+constexpr int kCounts = 5;
+__device__ unsigned long long g_counts[kCounts];
 #define COUNT_LANES(slot) count_lanes(g_counts + (slot))
+#define COUNT_WHOLE_TILE() atomicAdd(g_counts + 4, 1ull)
 #else
 #define COUNT_LANES(slot)
+#define COUNT_WHOLE_TILE()
 #endif
 
 // What a launch reads at the same address from every lane.  Element table
@@ -131,7 +166,12 @@ struct Params {
   int n_planes, bp, tile_rows, plane_tiles, reuse;
   const float *sx, *sy, *u1, *u2, *bu1, *bu2, *shap;
   float *origin, *dir;
-  int *tries, *tir;
+  int *tries, *tir;  // null: no tries and tir written
+  // the finished rays: null weight writes none of them
+  const float* exposure;
+  float *weight, *d_ody, *d_ddy;
+  int* stats;
+  bool vec;  // the five float outputs 16-byte aligned: dead tiles whole
 };
 
 struct Payload {
@@ -408,6 +448,28 @@ __device__ __forceinline__ void store_ray(float* q, int s, const Ray& r) {
   qi[qRnd * kSlots + s] = r.rnd;
 }
 
+// The outputs of tile t's 32 rays where every one took the dead-key exit:
+// origin, dir and both derivatives -0.0 (no payload, and retried: tries =
+// max_total > 0), the weight w; the tile's 104 float4 of the five outputs,
+// lane l the ones at l, l + 32, l + 64 and l + 96.
+__device__ __forceinline__ void store_dead_tile(const Params& p, int64_t t,
+                                                float w, int lane) {
+  const float4 nz = make_float4(-0.0f, -0.0f, -0.0f, -0.0f);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int u = 32 * q + lane;  // float4 u of the tile's 104
+    if (u < 96) {
+      const int a = u / 24;  // 24 float4 of each [32, 3] output
+      float* base = a == 0 ? p.origin : a == 1 ? p.dir : a == 2 ? p.d_ody
+                                                                : p.d_ddy;
+      reinterpret_cast<float4*>(base)[24 * t + (u - 24 * a)] = nz;
+    } else if (u < 104) {
+      reinterpret_cast<float4*>(p.weight)[8 * t + (u - 96)] =
+          make_float4(w, w, w, w);
+    }
+  }
+}
+
 template <int V>
 __global__ void __launch_bounds__(kBlock)
 raytraced_kernel(const __grid_constant__ Params p) {
@@ -415,8 +477,11 @@ raytraced_kernel(const __grid_constant__ Params p) {
   constexpr bool circles = V & kCircles;
   __shared__ float shap[kMaxKeys * 6];
   __shared__ float rings[kWarps * 2 * kFields * kSlots];
+  __shared__ Exposure expo;
   for (int j = threadIdx.x; j < p.n_keys * 6; j += blockDim.x)
     shap[j] = p.shap[j];
+  if (threadIdx.x == 0 && p.weight != nullptr)
+    expo = exposure_factors(p.exposure);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -428,6 +493,7 @@ raytraced_kernel(const __grid_constant__ Params p) {
   const int n_warps = gridDim.x * kWarps;
   const int max_total = p.max_total;
   const int per_round = use_profile ? p.k_draws : 1;
+  Counts c;  // the finished rays' counters, reduced after the loop
   int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
   // ring positions, the same in every lane
   int t_head = 0, t_tail = 0, d_head = 0, d_tail = 0;
@@ -459,6 +525,7 @@ raytraced_kernel(const __grid_constant__ Params p) {
     int j = 0;
     float u1v = 0.0f, u2v = 0.0f, dx = 0.0f, dy = 0.0f;
     bool step = false, finish = false, traced = false;
+    bool whole = false, filled = false;
     bool to_trace = false, to_draw = false;
     if (pass == kTile) {
       // a new tile of 32 consecutive rays: prologue and the caller's draw
@@ -469,6 +536,31 @@ raytraced_kernel(const __grid_constant__ Params p) {
         u2v = p.u2[r.i];
         step = prologue<V>(p, shap, r);
         finish = !step;
+      }
+      // every ray of the tile in range and dead: stored whole
+      const unsigned dead = __ballot_sync(kFull, finish);
+      whole = p.vec && dead == kFull;
+      if (p.weight != nullptr && !whole) {
+        // the tile's weights and derivatives as most of its rays end (a
+        // live ray's exposed(1) and zeros, a dead ray's exposed(0) and
+        // -0.0), written while the tile's lines are written whole
+        if (r.i < p.B) p.weight[r.i] = exposed(finish ? 0.0f : 1.0f, expo);
+        const int64_t t = r.i >> 5;
+        filled = p.vec && 32 * t + 32 <= p.B;
+        if (filled && lane < 24) {  // float4 `lane` of the tile's 24
+          float z[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            z[k] = (dead >> ((4 * lane + k) / 3)) & 1u ? -0.0f : 0.0f;
+          const float4 v = make_float4(z[0], z[1], z[2], z[3]);
+          reinterpret_cast<float4*>(p.d_ody)[24 * t + lane] = v;
+          reinterpret_cast<float4*>(p.d_ddy)[24 * t + lane] = v;
+        } else if (!filled && step) {
+          float* go = p.d_ody + 3 * (int64_t)r.i;
+          float* gd = p.d_ddy + 3 * (int64_t)r.i;
+          go[0] = go[1] = go[2] = 0.0f;
+          gd[0] = gd[1] = gd[2] = 0.0f;
+        }
       }
     } else if (pass == kTrace) {
       const int s = (t_head + lane) & (kSlots - 1);
@@ -492,6 +584,19 @@ raytraced_kernel(const __grid_constant__ Params p) {
         d[0] = -pay.dx;
         d[1] = -pay.dy;
         d[2] = -pay.dz;
+        if (p.weight != nullptr && (!finish || r.tries > 0)) {
+          // the derivatives of a ray that is or will be retried: the
+          // payload (zeros, written with the tile, where this trace ends
+          // the ray alive before any retry)
+          float* go = p.d_ody + 3 * (int64_t)r.i;
+          float* gd = p.d_ddy + 3 * (int64_t)r.i;
+          go[0] = -pay.ox;
+          go[1] = -pay.oy;
+          go[2] = -pay.oz;
+          gd[0] = -pay.dx;
+          gd[1] = -pay.dy;
+          gd[2] = -pay.dz;
+        }
         if (!finish) {  // the ray goes on with its next round's draws
           to_draw = true;
           load_rest<V>(tq, s, r);
@@ -545,14 +650,35 @@ raytraced_kernel(const __grid_constant__ Params p) {
       }
     }
     if (finish) {
-      if (!traced) {  // never traced: the negated zero payload
-        float* o = p.origin + 3 * (int64_t)r.i;
-        float* d = p.dir + 3 * (int64_t)r.i;
-        o[0] = o[1] = o[2] = -0.0f;
-        d[0] = d[1] = d[2] = -0.0f;
+      float w = 0.0f;
+      if (p.weight != nullptr)
+        w = ray_weight(r.tries, r.tir, max_total - 1, true, expo, c);
+      if (whole) {  // every lane is here
+        store_dead_tile(p, r.i >> 5, w, lane);
+        if (lane == 0) COUNT_WHOLE_TILE();
+      } else {
+        if (!traced) {  // never traced: the negated zero payload
+          float* o = p.origin + 3 * (int64_t)r.i;
+          float* d = p.dir + 3 * (int64_t)r.i;
+          o[0] = o[1] = o[2] = -0.0f;
+          d[0] = d[1] = d[2] = -0.0f;
+          if (p.weight != nullptr && !filled) {
+            const float z = r.tries > 0 ? -0.0f : 0.0f;
+            float* go = p.d_ody + 3 * (int64_t)r.i;
+            float* gd = p.d_ddy + 3 * (int64_t)r.i;
+            go[0] = go[1] = go[2] = z;
+            gd[0] = gd[1] = gd[2] = z;
+          }
+        }
+        // the weight was written with the tile: again if the ray ends
+        // vignetted after it
+        if (p.weight != nullptr && pass != kTile && r.tries >= max_total)
+          p.weight[r.i] = w;
+        if (p.tries != nullptr) {
+          p.tries[r.i] = r.tries;
+          p.tir[r.i] = r.tir;
+        }
       }
-      p.tries[r.i] = r.tries;
-      p.tir[r.i] = r.tir;
     }
 
     // queue behind the rays that wait: every lane has read its popped slot
@@ -576,6 +702,7 @@ raytraced_kernel(const __grid_constant__ Params p) {
     d_tail += __popc(md);
     __syncwarp();
   }
+  if (p.weight != nullptr) add_counts(c, p.stats);
 }
 
 template <int V>
@@ -608,20 +735,38 @@ extern "C" int zoic_raytraced_blocks_per_sm(int variant) {
   return err == 0 ? n : -1;
 }
 
-// Launch `grid` blocks on `stream`; returns cudaGetLastError() as an int
-// (0 = success).  elems ([n_elems, 8]), prof ([4, n_coef]) and scal ([8]: origin_shift, -thickness[0], -, aperture[0],
-// key spacing, -, sensor_width / 2, inv_dmax) are host arrays, copied into
-// the kernel's parameter; shap ([n_keys, 6]) and every other pointer are
-// device memory.  bu1/bu2 ([n_planes, bp]) are read only in the presampled
-// variants.
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Launch `grid` blocks on `stream`; returns the first CUDA error as an int
+// (0 = success).  elems ([n_elems, 8]), prof ([4, n_coef]) and scal ([8]:
+// origin_shift, -thickness[0], -, aperture[0], key spacing, -,
+// sensor_width / 2, inv_dmax) are host arrays, copied into the kernel's
+// parameter; shap ([n_keys, 6]) and every other pointer are device memory.
+// bu1/bu2 ([n_planes, bp]) are read only in the presampled variants.  The
+// kernel writes origin and dir ([B, 3]), and tries and tir ([B]) where
+// they are not null, and the finished rays where weight is not null:
+// weight ([B]), d_ody, d_ddy ([B, 3]) and the four counters into stats
+// ([4] int32, zeroed on the same stream first), with the exposure (one
+// float) read on the card.
 extern "C" int zoic_raytraced_launch(
     const float* sx, const float* sy, const float* u1, const float* u2,
     const float* bu1, const float* bu2, const float* elems,
     const float* shap, const float* prof, const float* scal, float* origin,
-    float* dir, int* tries, int* tir, int B, int n_elems, int n_keys,
+    float* dir, int* tries, int* tir, const float* exposure, float* weight,
+    float* d_ody, float* d_ddy, int* stats, int B, int n_elems, int n_keys,
     int n_coef, int iris_idx, int max_total, int seed, int variant,
     int k_draws, int n_planes, int bp, int tile_rows, int plane_tiles,
     int reuse, int grid, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if ((tries == nullptr) != (tir == nullptr) ||
+      (weight != nullptr &&
+       (exposure == nullptr || d_ody == nullptr || d_ddy == nullptr ||
+        stats == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (weight != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(stats, 0, 4 * sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (B <= 0) return 0;
   if (n_elems > kMaxElems || n_elems < 0 || n_keys > kMaxKeys || n_keys < 1 ||
       n_coef > kMaxCoef || n_coef < 1 || k_draws < 1 || grid < 1)
@@ -664,10 +809,17 @@ extern "C" int zoic_raytraced_launch(
   p.dir = dir;
   p.tries = tries;
   p.tir = tir;
+  p.exposure = exposure;
+  p.weight = weight;
+  p.d_ody = d_ody;
+  p.d_ddy = d_ddy;
+  p.stats = stats;
+  p.vec = weight != nullptr && aligned16(origin) && aligned16(dir) &&
+          aligned16(weight) && aligned16(d_ody) && aligned16(d_ddy);
   switch (variant) {
 #define ZOIC_CASE(V) \
   case V:            \
-    return launch_instance<V>(p, grid, (cudaStream_t)stream);
+    return launch_instance<V>(p, grid, s);
     ZOIC_RAYTRACED_INSTANCES(ZOIC_CASE)
 #undef ZOIC_CASE
   }
@@ -678,13 +830,13 @@ extern "C" int zoic_raytraced_launch(
 // The counting build's counters: zero them, or copy them to the host after
 // the launches on every stream have finished.
 extern "C" int zoic_raytraced_counts_reset() {
-  const unsigned long long zero[4] = {0, 0, 0, 0};
+  const unsigned long long zero[kCounts] = {};
   return (int)cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
 }
 
 extern "C" int zoic_raytraced_counts_read(unsigned long long* out) {
   cudaError_t err = cudaDeviceSynchronize();
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaMemcpyFromSymbol(out, g_counts, 4 * sizeof(*out));
+  return (int)cudaMemcpyFromSymbol(out, g_counts, kCounts * sizeof(*out));
 }
 #endif

@@ -1,10 +1,10 @@
 """What the camera models share (``zoic_tpu/models/common.py``): the
 eager path's aperture sampler and retry rounds, and the epilogue of both
 paths (weights, exposure, the fake derivatives and the run counters),
-whose pieces live beside its kernel in :mod:`..ops.epilogue_kernel`: the
-raytraced kernel path calls :func:`~..ops.epilogue_kernel.epilogue_fused`,
-the thin lens's kernel computes it in its final store
-(:func:`~..ops.trace_kernel.thinlens_rays`), and the eager path composes
+whose pieces live in :mod:`..ops.epilogue_kernel`: both camera kernels
+compute it where their rays finish
+(:func:`~..ops.trace_kernel.raytraced_rays`,
+:func:`~..ops.trace_kernel.thinlens_rays`), and the eager path composes
 :func:`weight_and_stats`, :func:`apply_exposure` and
 :func:`fake_derivatives` itself.
 

@@ -22,9 +22,11 @@ Pallas kernel takes flat blocks).
   reference.  In the LUT retry path the centroid translation moves x only,
   as on the first attempt (the JAX package's reading of zoic.cpp:1933).
 
-The weight, exposure, derivative and counter epilogue is one launch of
-:func:`zoic_tpu_torch.ops.epilogue_kernel.epilogue_fused` on the kernel
-path; the eager path composes its plain pieces (``models/common.py``).
+On the kernel path the raytraced kernel also writes the weight, exposure,
+derivatives and counters where each ray finishes
+(:func:`zoic_tpu_torch.ops.trace_kernel.raytraced_rays`: one launch, no
+epilogue pass); the eager path composes the epilogue's plain pieces
+(``models/common.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 from .. import bokeh as bokeh_mod
 from .. import pupil, trace
 from ..config import CameraConfig
-from ..ops import bokeh_kernel, epilogue_kernel, trace_kernel
+from ..ops import bokeh_kernel, trace_kernel
 from ..optics import V3
 from ..system import CameraState, RayBatch, RayStats
 from ..utils.profiling import span
@@ -175,7 +177,7 @@ def retry_planes(state: CameraState, max_tries: int, b: int,
 
 def kernel_inputs(state: CameraState, config: CameraConfig, lensx: Tensor,
                   lensy: Tensor, seed: int) -> Tuple[Tensor, Tensor, dict]:
-    """The aperture inputs and keyword flags ``raytraced_fused`` takes for
+    """The aperture inputs and keyword flags ``raytraced_rays`` takes for
     this camera: with image bokeh the attempt-0 offsets and the retry
     planes are drawn first; the pre-check runs when the config asks for
     it, the state has a profile and, with bokeh offsets (which fill the
@@ -211,10 +213,7 @@ def _create_rays_kernel(
     seed: int,
 ) -> Tuple[RayBatch, RayStats]:
     u1, u2, flags = kernel_inputs(state, config, lensx, lensy, seed)
-    origin, direction, tries, tir = trace_kernel.raytraced_fused(
-        state.lens, sx, sy, u1, u2, state.sensor_width, seed, **flags)
-    weight, d_ody, d_ddy, stats = epilogue_kernel.epilogue_fused(
-        tries, tir, origin, direction, state.exposure_control,
-        config.max_tries)
-    return (RayBatch(origin, direction, weight, d_ody, d_ddy),
-            common.ray_stats(stats))
+    *rays, stats = trace_kernel.raytraced_rays(
+        state.lens, sx, sy, u1, u2, state.sensor_width, seed,
+        state.exposure_control, **flags)
+    return RayBatch(*rays), common.ray_stats(stats)

@@ -4,6 +4,7 @@ inputs, allocate the outputs, launch on PyTorch's current stream and raise
 on a launch error.
 
 The wrappers (:func:`ops.trace_kernel.raytraced_fused`,
+:func:`ops.trace_kernel.raytraced_rays`,
 :func:`ops.trace_kernel.thinlens_rays`,
 :func:`ops.bokeh_kernel.sample_fused`,
 :func:`ops.bokeh_kernel.planes_fused`) keep what is theirs: the tables of

@@ -1,8 +1,9 @@
-"""The epilogue of the raytraced model's kernel path: the CUDA kernel's
-wrapper and its plain PyTorch version.  The thin lens's kernel path
-computes the same in its camera kernel
-(:func:`..ops.trace_kernel.thinlens_rays`); :func:`epilogue_plain` is its
-plain version's second half.
+"""The camera models' epilogue: its plain PyTorch version and a CUDA
+kernel of its own.  Both camera kernels compute it in their own stores
+(:func:`..ops.trace_kernel.raytraced_rays`,
+:func:`..ops.trace_kernel.thinlens_rays`), so no frame path launches the
+kernel; :func:`epilogue_plain` is the second half of both their plain
+versions.
 
 The JAX package computes it with jnp ops that XLA fuses into the jitted
 ``create_rays`` after the Pallas call (``zoic_tpu/models/common.py:
@@ -135,7 +136,7 @@ def epilogue_fused(
     tries: Tensor, tir: Tensor, origin: Tensor, direction: Tensor,
     exposure: Tensor, max_tries: int,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """The epilogue over the raytraced kernel's flat outputs: ``tries`` and
+    """The epilogue over ``raytraced_fused``'s flat outputs: ``tries`` and
     ``tir`` i32[B], ``origin`` and ``direction`` f32[B,3], the
     state's 0-d ``exposure``.  Returns ``(weight f32[B], d_ody f32[B,3],
     d_ddy f32[B,3], stats i32[4])``, ``stats`` holding success, vignetted,

@@ -27,7 +27,12 @@ rays, before a draw and before a trace, so that 32 lanes draw or trace
 together; :func:`persistent_grid` sizes it) and runs
 :func:`raytraced_plain` for CPU tensors.  :func:`raytraced_plain`
 runs the same rounds over the pending rays as tensor ops, in the kernel's
-order of operations.
+order of operations.  :func:`raytraced_rays`, the raytraced model's kernel
+path, launches the same kernel writing the finished rays (weight,
+exposure, derivatives, counters) at its own store site in place of
+``tries`` and ``tir``, for CUDA tensors, and runs
+:func:`raytraced_rays_plain` (:func:`raytraced_plain`, then
+``epilogue_plain``) for CPU tensors.
 
 Port of ``zoic_tpu/ops/trace_kernel.py:_thinlens_kernel``: the pinhole
 direction, the depth-of-field refocus and the empirical-vignetting retry
@@ -60,6 +65,8 @@ Tensor = torch.Tensor
 
 # launches of the CUDA kernel by raytraced_fused (plain CPU runs not counted)
 launches = 0
+# launches of the CUDA kernel by raytraced_rays (plain CPU runs not counted)
+raytraced_rays_launches = 0
 # launches of the CUDA kernel by thinlens_rays (plain CPU runs not counted)
 thinlens_rays_launches = 0
 
@@ -662,7 +669,7 @@ def raytraced_plain(
     return origin, direction, tries, tir
 
 
-_RAYTRACED_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
+_RAYTRACED_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
 
 # (id(lens), id(sensor_width), device, use_lut, use_profile) ->
@@ -744,11 +751,13 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
         return tables
 
 
-def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
-                      max_tries, use_lut, use_profile, presampled, retry_u1,
-                      retry_u2, count=False):
+def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, exposure=None,
+                      *, max_tries, use_lut, use_profile, presampled,
+                      retry_u1, retry_u2, count=False):
     """Check, allocate and launch ``csrc/raytraced.cu`` (its lane-counting
-    build with ``count``); returns ``(origin, dir, tries, tir)``."""
+    build with ``count``); returns ``(origin, dir, tries, tir)``, or with
+    ``exposure`` (a 0-d tensor on the inputs' card) the finished rays
+    ``(origin, dir, weight, d_ody, d_ddy, stats)``."""
     seed = _check_seed(seed)
     b, dev = _launch.check_flat(
         (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
@@ -763,11 +772,24 @@ def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
         n_planes, bp = bu1.shape
         tile_rows, plane_tiles, reuse = retry_plane_layout(
             b, bp, DEF_RT_TILE_ROWS)
-    origin, direction, tries, tir = _launch.empty(
-        dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
-        ((b,), torch.int32), ((b,), torch.int32))
+    finished = exposure is not None
+    if finished:
+        out = _launch.empty(
+            dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
+            ((b,), torch.float32), ((b, 3), torch.float32),
+            ((b, 3), torch.float32), ((4,), torch.int32))
+        outputs = (None, None, exposure.data_ptr(),
+                   *(t.data_ptr() for t in out[2:]))
+    else:
+        out = _launch.empty(
+            dev, ((b, 3), torch.float32), ((b, 3), torch.float32),
+            ((b,), torch.int32), ((b,), torch.int32))
+        outputs = (out[2].data_ptr(), out[3].data_ptr(), None, None, None,
+                   None, None)
     if b == 0:
-        return origin, direction, tries, tir
+        if finished:
+            out[5].zero_()
+        return out
     defines = (_launch.COUNT_DEFINE,) if count else ()
     fn = _launch.bind("raytraced", "zoic_raytraced_launch",
                       _RAYTRACED_ARGTYPES, defines=defines)
@@ -776,8 +798,7 @@ def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
         sx.data_ptr(), sy.data_ptr(), u1.data_ptr(), u2.data_ptr(),
         bu1.data_ptr() if bu1 is not None else None,
         bu2.data_ptr() if bu2 is not None else None,
-        *pointers, origin.data_ptr(), direction.data_ptr(), tries.data_ptr(),
-        tir.data_ptr(),
+        *pointers, out[0].data_ptr(), out[1].data_ptr(), *outputs,
         b, elems.shape[0], shap.shape[0], prof.shape[1], v.iris_idx,
         max_tries + 1, seed, word, PRECHECK_DRAWS, n_planes, bp,
         tile_rows, plane_tiles, int(reuse),
@@ -785,7 +806,7 @@ def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, *,
             "raytraced", "zoic_raytraced_blocks_per_sm", [ctypes.c_int], dev,
             word, defines=defines)),
     )
-    return origin, direction, tries, tir
+    return out
 
 
 def raytraced_fused(
@@ -822,25 +843,84 @@ def raytraced_fused(
         return out
 
 
+def raytraced_rays_plain(
+    lens: LensSystem, sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor,
+    sensor_width, seed: int, exposure: Tensor, *, max_tries: int,
+    use_lut: bool = True, use_profile: bool = True, presampled: bool = False,
+    retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of :func:`raytraced_rays` on any device:
+    :func:`raytraced_plain`, then ``epilogue_plain`` on its rays.  Returns
+    ``(origin[B,3], dir[B,3], weight[B], d_ody[B,3], d_ddy[B,3], stats
+    i32[4])``."""
+    origin, direction, tries, tir = raytraced_plain(
+        lens, sx, sy, u1, u2, sensor_width, seed, max_tries=max_tries,
+        use_lut=use_lut, use_profile=use_profile, presampled=presampled,
+        retry_u1=retry_u1, retry_u2=retry_u2)
+    return (origin, direction) + epilogue_plain(
+        tries, tir, origin, direction, exposure, max_tries)
+
+
+def raytraced_rays(
+    lens: LensSystem, sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor,
+    sensor_width, seed: int, exposure: Tensor, *, max_tries: int,
+    use_lut: bool = True, use_profile: bool = True, presampled: bool = False,
+    retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The raytraced model's finished rays over flat ``[B]`` inputs: the
+    camera kernel's rays (:func:`raytraced_fused`) and their epilogue, in
+    one launch.
+
+    Takes :func:`raytraced_fused`'s arguments and the state's 0-d
+    ``exposure``; returns ``(origin[B,3], dir[B,3], weight[B], d_ody[B,3],
+    d_ddy[B,3], stats i32[4])``, ``stats`` holding success, vignetted, tir
+    and tries_total.  CUDA tensors launch ``csrc/raytraced.cu`` (the
+    counter buffer zeroed, then the kernel, which writes the weights and
+    derivatives with each tile of 32 rays and again where a ray ends
+    otherwise, adds the counters once a block and reads the exposure on
+    the card: no pass reads the rays back); CPU tensors run
+    :func:`raytraced_rays_plain`."""
+    global raytraced_rays_launches
+    with span("zoic.raytraced"):
+        kw = dict(max_tries=max_tries, use_lut=use_lut,
+                  use_profile=use_profile, presampled=presampled,
+                  retry_u1=retry_u1, retry_u2=retry_u2)
+        dev = sx.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        exposure = exposure_on(exposure, dev)
+        if dev.type == "cpu":
+            return raytraced_rays_plain(lens, sx, sy, u1, u2, sensor_width,
+                                        seed, exposure, **kw)
+        out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed,
+                                exposure, **kw)
+        if sx.shape[0] > 0:
+            raytraced_rays_launches += 1
+        return out
+
+
 def raytraced_lane_use(
     lens: LensSystem, sx: Tensor, sy: Tensor, u1: Tensor, u2: Tensor,
-    sensor_width, seed: int, **kw,
-) -> Tuple[Tuple[Tensor, Tensor, Tensor, Tensor], dict]:
-    """:func:`raytraced_fused` through the kernel's lane-counting build, on
+    sensor_width, seed: int, exposure: Tensor, **kw,
+) -> Tuple[Tuple[Tensor, ...], dict]:
+    """:func:`raytraced_rays` through the kernel's lane-counting build, on
     CUDA tensors: its outputs, and how full the warps were.  ``traces`` and
     ``draws`` count the lanes that entered an element-stack trace or took
     an aperture draw (the caller's included), ``warp_traces`` and
     ``warp_draws`` the converged groups of a warp that did: lanes over
-    groups is the mean number of active lanes."""
+    groups is the mean number of active lanes.  ``whole_tiles`` counts the
+    tiles of 32 rays, all dead keys, stored whole."""
     kw = dict(dict(use_lut=True, use_profile=True, presampled=False,
                    retry_u1=None, retry_u2=None), **kw)
     _launch.reset_counts("raytraced")
     out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed,
-                            count=True, **kw)
-    traces, warp_traces, draws, warp_draws = _launch.read_counts(
-        "raytraced", 4)
+                            exposure_on(exposure, sx.device), count=True,
+                            **kw)
+    traces, warp_traces, draws, warp_draws, whole = _launch.read_counts(
+        "raytraced", 5)
     return out, {"traces": traces, "warp_traces": warp_traces,
-                 "draws": draws, "warp_draws": warp_draws}
+                 "draws": draws, "warp_draws": warp_draws,
+                 "whole_tiles": whole}
 
 
 # -------------------------------------------------------------- thin lens
