@@ -43,6 +43,9 @@ from zoic_tpu_torch.models import raytraced as rt_model
 from zoic_tpu_torch.ops import _build
 from zoic_tpu_torch.ops import bokeh_kernel as tbk
 from zoic_tpu_torch.ops import trace_kernel as tk
+from _bokeh_search import decode as _decode
+from _bokeh_search import kernel_search as _kernel_search
+from _bokeh_search import planes_search as _planes_search
 
 H100_SMEM_LIMIT = 232_448  # opt-in shared memory a block, bytes
 
@@ -90,28 +93,6 @@ def _draws(image, n, seed):
     u1[:len(edges1)] = edges1
     u2[-len(edges2):] = edges2
     return torch.from_numpy(u1), torch.from_numpy(u2)
-
-
-def _fixed_step_upper_bound(a, off, n, u):
-    """``csrc/bokeh.cu:upper_bound4`` over flat ``a``: ceil(log2 n)
-    halvings of ``base`` with no branch, then one probe."""
-    base = off.clone()
-    length = n
-    while length > 1:
-        half = length >> 1
-        base = base + torch.where(a[base + half] <= u, half, 0)
-        length -= half
-    return base - off + (a[base] <= u).long()
-
-
-def _kernel_search(packed, h, w, u1, u2):
-    """The kernel's indexing of the packed tables, in PyTorch."""
-    ws = w + 1
-    zero = torch.zeros_like(u1, dtype=torch.int64)
-    r = torch.clamp_max(_fixed_step_upper_bound(packed, zero, h, u1), h - 1)
-    off = 2 * h + r * ws
-    c = torch.clamp_max(_fixed_step_upper_bound(packed, off, w, u2), w - 1)
-    return packed[off + h * ws + c], packed[h + r]
 
 
 @pytest.mark.parametrize("name", list(IMAGES))
@@ -229,13 +210,6 @@ def test_source_constants_match_the_wrapper():
 # ---- the plane entry's guide tables and bracketed search
 
 
-def _decode(words, steps):
-    """``(lo, hi)`` of guide words ``lo << steps | (hi - lo)``."""
-    bits = words.view(torch.int32).long() & 0xFFFFFFFF
-    lo = bits >> steps
-    return lo, lo + (bits & ((1 << steps) - 1))
-
-
 def _guides(t, h, w):
     """The row guide ``(lo, hi)`` ``[kr]`` and the column guides
     ``[h, kc]`` of :class:`PlaneTables` ``t``."""
@@ -243,34 +217,6 @@ def _guides(t, h, w):
     row = _decode(t.words[base:base + kr], t.steps_r)
     col = _decode(t.words[base + kr:base + kr + h * kc], t.steps_c)
     return row, tuple(x.view(h, kc) for x in col)
-
-
-def _bracket_search(a, words, off, steps, u):
-    """``csrc/bokeh.cu:bracket_search4`` over flat ``a``: the bracket of
-    guide word ``words`` (offset by ``off``), then ``steps`` steps by
-    ``2**(steps-1), ..., 1``, no probe past its end."""
-    pos, hi = _decode(words, steps)
-    pos, hi = pos + off, hi + off
-    for s in reversed(range(steps)):
-        p = pos + (1 << s)
-        inside = p <= hi
-        probe = a[torch.where(inside, p - 1, 0)]
-        pos = torch.where(inside & (probe <= u), p, pos)
-    return pos
-
-
-def _planes_search(t, h, w, u1, u2):
-    """The plane entry's indexing of :func:`plane_tables`, in PyTorch:
-    slice ``u * K`` of each guide, then the bracketed searches."""
-    ws, base = w + 1, tbk.table_floats(h, w)
-    kr, kc = 1 << t.log2_kr, 1 << t.log2_kc
-    words = t.words
-    g = words[base + (u1 * kr).long()]
-    r = _bracket_search(words, g, torch.zeros_like(g, dtype=torch.int64),
-                        t.steps_r, u1)
-    g = words[base + kr + (r << t.log2_kc) + (u2 * kc).long()]
-    c = _bracket_search(words[2 * h:], g, r * ws, t.steps_c, u2)
-    return words[2 * h + h * ws + c], words[h + r]
 
 
 def _edges(log2_k):

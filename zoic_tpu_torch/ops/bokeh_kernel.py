@@ -44,9 +44,12 @@ from . import _launch, trace_kernel
 Tensor = torch.Tensor
 
 # launches of the CUDA kernel by sample_fused and by planes_fused (plain
-# CPU runs not counted)
+# CPU runs not counted), and of those the launches whose tables were
+# searched in global memory (too large for a block's shared memory)
 launches = 0
 plane_launches = 0
+global_launches = 0
+plane_global_launches = 0
 
 # draws per searchsorted call of sample_plain: bounds its [chunk, w] gather
 _PLAIN_CHUNK = 1 << 20
@@ -312,7 +315,7 @@ def sample_fused(image: BokehImage, u_row: Tensor,
     ``(dx[B], dy[B])`` f32.  CUDA tensors launch ``csrc/bokeh.cu``, for
     every image size :func:`zoic_tpu_torch.bokeh.build` makes; CPU tensors
     run :func:`sample_plain`."""
-    global launches
+    global launches, global_launches
     with span("zoic.bokeh.sample"):
         if u_row.device.type == "cpu":
             return sample_plain(image, u_row, u_col)
@@ -331,6 +334,7 @@ def sample_fused(image: BokehImage, u_row: Tensor,
             image.width, packed.numel(), int(shared), grid,
         )
         launches += 1
+        global_launches += int(not shared)
         return dx, dy
 
 
@@ -342,7 +346,7 @@ def planes_fused(image: BokehImage, n_cells: int, pseed: int, salt1: int,
     card launches ``csrc/bokeh.cu``'s plane entry, which hashes the cell
     index itself and searches the brackets of :func:`plane_tables`; one on
     the CPU runs :func:`planes_plain`."""
-    global plane_launches
+    global plane_launches, plane_global_launches
     with span("zoic.bokeh.planes"):
         dev = image.cdf_row.device
         if dev.type == "cpu":
@@ -366,4 +370,5 @@ def planes_fused(image: BokehImage, n_cells: int, pseed: int, salt1: int,
             t.steps_r, t.steps_c, int(shared), grid,
         )
         plane_launches += 1
+        plane_global_launches += int(not shared)
         return dx, dy
