@@ -95,7 +95,8 @@ bound holds; else it reads "no reading", null in the JSON); the bokeh
 kernel against
 its plain version on 4,194,304 draws (bit-equal) on both of its paths
 (tables in shared memory: the 64x64 disk and a 128x128 disk; in global
-memory: a 300x200 image), and its retry-plane entry against the eager
+memory, the plane entry's searched through their guides: a 300x200
+image), and its retry-plane entry against the eager
 hash and sampler at the bench's 4 x 524,288 cells and at the ragged
 batches' cell counts (bit-equal); ragged batches; lane use; the compiles;
 the microbenchmark (rates, the IEEE sweep, the clock held); the bench's

@@ -22,11 +22,20 @@ CPU.
   package's sampler and to ``planes_plain`` on every listed image, at
   every slice edge ``k / K``, the float just below it, 0.0, 1 - 2**-24
   and every CDF entry; its shared-memory size rule and grid;
-* the source's block and draws-per-thread constants match the wrapper's.
+* the sampler's global-memory instance, the same guided search with a
+  full search over the same tables for draws outside ``[0, 1)``, written
+  out in PyTorch: bit-equal to ``sample_plain`` inside ``[0, 1)`` and
+  outside it (signed zeros, a subnormal, 1.0 and above, infinities, the
+  CDF entries at or above 1.0), and to the full search of the packed
+  tables on NaN; the full search over the plane tables alone equals
+  ``sample_plain``;
+* the source's block and draws-per-thread constants match the wrapper's,
+  and its entries' parameters the wrapper's ctypes argument types.
 
 No Pallas kernel runs here: JAX's side is its jnp sampler and hash.
 """
 
+import ctypes
 import os
 import re
 
@@ -46,6 +55,7 @@ from zoic_tpu_torch.ops import trace_kernel as tk
 from _bokeh_search import decode as _decode
 from _bokeh_search import kernel_search as _kernel_search
 from _bokeh_search import planes_search as _planes_search
+from _bokeh_search import sampler_search as _sampler_search
 
 H100_SMEM_LIMIT = 232_448  # opt-in shared memory a block, bytes
 
@@ -195,6 +205,22 @@ def test_planes_plain_equals_hash_then_sample(n_cells, pseed):
 ])
 def test_plane_shape(max_tries, b, shape):
     assert rt_model.plane_shape(max_tries, b) == shape
+
+
+@pytest.mark.parametrize("entry,argtypes", [
+    ("zoic_bokeh_launch", tbk._SAMPLE_ARGTYPES),
+    ("zoic_bokeh_planes_launch", tbk._PLANES_ARGTYPES),
+])
+def test_launch_parameters_match_the_argtypes(entry, argtypes):
+    with open(os.path.join(_build.CSRC, "bokeh.cu")) as f:
+        src = f.read()
+    sig = re.search(rf'extern "C" int {entry}\((.*?)\)\s*\{{', src,
+                    re.S).group(1)
+    kinds = ["p" if "*" in a else "u" if "uint32_t" in a else "i"
+             for a in sig.split(",")]
+    want = ["p" if t is ctypes.c_void_p else "u" if t is ctypes.c_uint32
+            else "i" for t in argtypes]
+    assert kinds == want
 
 
 def test_source_constants_match_the_wrapper():
@@ -349,6 +375,56 @@ def test_bracketed_search_of_hashed_cells_equals_planes_plain(name):
                             rt_model.SALT_P2)
     for g, p in zip(got, want):
         assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+
+
+# draws outside [0, 1), where the guides do not hold
+OUTSIDE = np.array([-0.0, -2.0**-149, -1.0, 1.0, 1.0 + 2.0**-23, 2.0,
+                    np.inf, -np.inf], np.float32)
+
+
+def _any_draws(image, t, seed):
+    """:func:`_edge_draws`; then each value of ``OUTSIDE`` and each CDF
+    entry at or above 1.0 as one uniform of a draw whose other uniform is
+    in ``[0, 1)``; then every pair of ``OUTSIDE``."""
+    u1, u2 = (u.numpy() for u in _edge_draws(image, t, seed))
+    cdf_row = image.cdf_row.numpy()
+    cdf_col = image.cdf_col.numpy().reshape(-1)
+    out1 = np.concatenate([OUTSIDE, cdf_row[cdf_row >= 1]])
+    out2 = np.concatenate([OUTSIDE, cdf_col[cdf_col >= 1]])
+    pairs = np.stack(np.meshgrid(OUTSIDE, OUTSIDE)).reshape(2, -1)
+    u1 = np.concatenate([u1, out1, u1[:len(out2)], pairs[0]])
+    u2 = np.concatenate([u2, u2[:len(out1)], out2, pairs[1]])
+    return torch.from_numpy(u1), torch.from_numpy(u2)
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_guided_sampler_equals_sample_plain_on_any_draw(name):
+    """The sampler's global-memory instance over the plane tables, its
+    fallback written out, equals ``sample_plain`` on every draw but NaN,
+    and the packed tables' full search (the shared instance) on NaN too.
+    The fallback alone, the full search and its clamps over the plane
+    tables, equals ``sample_plain`` on every such draw in or outside
+    ``[0, 1)``: the collapsed tails leave what each index it returns
+    selects as it was."""
+    image = tbokeh.build(IMAGES[name]())
+    h, w = image.height, image.width
+    t = tbk.plane_tables(image)
+    u1, u2 = _any_draws(image, t, seed=h * w + 2)
+    want = tbk.sample_plain(image, u1, u2)
+    _same_bits(_sampler_search(t, h, w, u1, u2), want)
+    _same_bits(_kernel_search(t.words[:tbk.table_floats(h, w)], h, w, u1,
+                              u2), want)
+    odd = torch.cat([torch.from_numpy(OUTSIDE),
+                     torch.tensor([0.5, float("nan")])])
+    nan = torch.full_like(odd, float("nan"))
+    a, b = torch.cat([nan, odd]), torch.cat([odd, nan])
+    _same_bits(_sampler_search(t, h, w, a, b),
+               _kernel_search(tbk.packed_tables(image), h, w, a, b))
 
 
 @pytest.mark.parametrize("h,w,kr,kc,smem,shared", [

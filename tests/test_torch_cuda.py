@@ -344,9 +344,9 @@ def test_bokeh_kernel_matches_plain_bit_for_bit(cuda_dev, shape, n):
 
 
 def _bokeh_image(shape):
-    """The 64x64 disk, a 128x128 disk, or random pixels (every fifth row
-    dark when there are more than five)."""
-    if shape in ((64, 64), (128, 128)):
+    """The 64x64 disk, a 128x128 or 512x512 disk, or random pixels (every
+    fifth row dark when there are more than five)."""
+    if shape in ((64, 64), (128, 128), (512, 512)):
         return zpt.bokeh.build(_disk(shape[0]))
     pixels = np.random.default_rng(shape[0] * 1000 + shape[1]).random(
         (*shape, 3), dtype=np.float32)
@@ -368,7 +368,30 @@ def _edge_draws(image, n, seed):
     return torch.from_numpy(u1), torch.from_numpy(u2)
 
 
-BOKEH_SHAPES = [(1, 1), (1, 64), (64, 1), (64, 64), (128, 128), (300, 200)]
+# draws outside [0, 1), where the global instance's guides do not hold
+OUTSIDE = np.array([-0.0, -2.0**-149, -1.0, 1.0, 1.0 + 2.0**-23, 2.0,
+                    np.inf, -np.inf], np.float32)
+
+
+def _outside_draws(image, u1, u2):
+    """``u1``, ``u2`` followed by draws with one uniform outside [0, 1)
+    (``OUTSIDE`` and every CDF entry at or above 1.0) and the other from
+    ``u1`` or ``u2``, and by every pair of ``OUTSIDE``; zeros pad what is
+    added to a multiple of 4."""
+    cdf_row = image.cdf_row.numpy()
+    cdf_col = image.cdf_col.numpy().reshape(-1)
+    out1 = np.concatenate([OUTSIDE, cdf_row[cdf_row >= 1]])
+    out2 = np.concatenate([OUTSIDE, cdf_col[cdf_col >= 1]])
+    pairs = np.stack(np.meshgrid(OUTSIDE, OUTSIDE)).reshape(2, -1)
+    a = np.concatenate([out1, np.resize(u1.numpy(), len(out2)), pairs[0]])
+    b = np.concatenate([np.resize(u2.numpy(), len(out1)), out2, pairs[1]])
+    pad = np.zeros(-len(a) % 4, np.float32)
+    return (torch.cat([u, torch.from_numpy(np.concatenate([x, pad]))])
+            for u, x in ((u1, a), (u2, b)))
+
+
+BOKEH_SHAPES = [(1, 1), (1, 64), (64, 1), (64, 64), (128, 128), (300, 200),
+                (512, 512)]
 
 
 @pytest.mark.cuda
@@ -376,14 +399,18 @@ BOKEH_SHAPES = [(1, 1), (1, 64), (64, 1), (64, 64), (128, 128), (300, 200)]
 @pytest.mark.parametrize("shape", BOKEH_SHAPES)
 def test_bokeh_kernel_both_paths_match_plain(cuda_dev, shape, n):
     """The shared-memory path (up to 128x128 on an H100) and the global
-    one (300x200), at batches that are not multiples of 4, with draws on
-    the CDF entries, 0.0 and 1 - 2**-24; then again with inputs one float
-    off 16-byte alignment (the scalar loads)."""
+    one, which searches the plane tables through their guides (300x200
+    and the benchmark's 512x512 disk), at batches that are not multiples
+    of 4, with draws on the CDF entries, 0.0 and 1 - 2**-24 and draws
+    outside [0, 1) (signed zeros, a subnormal, 1.0 and above, infinities,
+    the CDF entries at or above 1.0); then again with inputs one float off
+    16-byte alignment (the scalar loads)."""
     image = _bokeh_image(shape)
-    u1, u2 = _edge_draws(image, n, seed=shape[0] + n)
+    u1, u2 = _outside_draws(image, *_edge_draws(image, n,
+                                                seed=shape[0] + n))
     image = image.to(cuda_dev)
     _, shared, _ = bk._plan(image, n, False, cuda_dev)
-    assert shared == (shape != (300, 200))
+    assert shared == (shape not in ((300, 200), (512, 512)))
     pad = torch.zeros(1)
     for off in (0, 1):
         a, b = (torch.cat([pad[:off], u]).to(cuda_dev)[off:]

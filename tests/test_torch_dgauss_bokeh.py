@@ -9,9 +9,10 @@ samples, for speed).  The port's state is the reference's bit for bit,
 its pre-check fitted over the square the bokeh offsets fill.  The
 kernels' tables of the disk, searched as ``csrc/bokeh.cu`` searches them
 (``tests/_bokeh_search.py``), give the reference's offsets: the packed
-tables on the call's attempt-0 draws, the plane tables on its retry
-planes.  Both tables are too large for an H100 block's shared memory, so
-both entries take their global-memory instances.  On 2,125 film samples
+tables and, through their guides, the plane tables on the call's
+attempt-0 draws, the plane tables on its retry planes.  Both tables are
+too large for an H100 block's shared memory, so both entries take their
+global-memory instances, which search the plane tables.  On 2,125 film samples
 over the whole frame, among them rays whose retries read a plane cell a
 second time, every output and counter of ``Camera.create_rays`` equals
 the reference's, and every lit weight is the exposure's factor.  The JAX
@@ -30,7 +31,7 @@ import zoic_tpu_torch as zt
 from zoic_tpu_torch.models import raytraced as rt_model
 from zoic_tpu_torch.ops import bokeh_kernel as bk
 from zoic_tpu_torch.ops import trace_kernel as tk
-from _bokeh_search import kernel_search, planes_search
+from _bokeh_search import kernel_search, planes_search, sampler_search
 from _torch_threads import one_thread  # noqa: F401
 
 from benchmark import run
@@ -122,8 +123,10 @@ def test_the_packed_tables_give_the_references_offsets(dgauss_bokeh):
     assert torch.equal(dx_col[:, :w], ref.dx_col[order])
     assert not bool(cdf_col[:, w].any() or dx_col[:, w].any())
     _, _, lx, ly = dgauss_bokeh["samples"]
-    _same_bits(kernel_search(packed, h, w, lx, ly),
-               ref_bokeh.sample(ref, lx, ly))
+    want = ref_bokeh.sample(ref, lx, ly)
+    _same_bits(kernel_search(packed, h, w, lx, ly), want)
+    # the sampler's global-memory instance: the plane tables' guides
+    _same_bits(sampler_search(bk.plane_tables(image), h, w, lx, ly), want)
 
 
 def test_the_plane_tables_give_the_references_planes(dgauss_bokeh):

@@ -14,7 +14,8 @@ attempt-0 offsets, ``planes_plain`` for the retry planes, then
 ``raytraced_rays_plain``; every lit weight carries the exposure's factor.
 The call takes one launch of the sampler and one of the plane entry, and
 both search their tables in global memory (the tables of a 512 x 512
-image do not fit a block's shared memory).  Without a card each test
+image do not fit a block's shared memory): one cached set of the plane
+entry's tables, with its guides, for both.  Without a card each test
 skips: the kernels have no CPU mode.
 """
 
@@ -128,3 +129,6 @@ def test_one_launch_of_each_entry_in_global_memory(call):
                                 "plane_global_launches": 1}
     image = call["camera"].state.bokeh
     assert (image.height, image.width) == (512, 512)
+    cached = [(k, v[1]) for k, v in bk._TABLES.items() if v[0]() is image]
+    assert len(cached) == 1 and cached[0][0][2]  # planes
+    assert isinstance(cached[0][1], bk.PlaneTables)

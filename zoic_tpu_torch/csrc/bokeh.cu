@@ -42,9 +42,15 @@
 //   branch, so the probes of the four overlap and no lane waits on another;
 // * tables that do not fit in a block's shared memory (the host's choice by
 //   size, ops/bokeh_kernel.py:uses_smem) are searched in global memory by a
-//   second instance of the same kernel.  No size is refused.
+//   second instance of the same kernel, which reads the plane entry's
+//   tables and searches through their guides (below): on the 512 x 512
+//   disk a draw is then 7 dependent loads (a guide and two steps for the
+//   row, a guide and one step for the column, dx and dy) where two full
+//   searches are 22.  One set of tables serves both entries.  No size is
+//   refused.
 //
-// The plane entry cuts its searches short with guide tables.  For K =
+// The plane entry and the sampler's global instance cut their searches
+// short with guide tables.  For K =
 // 2^log2k <= 2^24 equal slices of [0, 1), the slice k = u * K of a uniform
 // u < 1 is exact (a power-of-two scaling).  Guide word k of a CDF holds lo
 // and hi, the answers at u = k / K and at (k + 1) / K; the answer is
@@ -67,6 +73,15 @@
 // its pace: the plane entry runs blocks of 1,024 threads, one an SM when
 // its tables are in shared memory, since every block copies them in
 // (tools/bokeh_bound.py times it at one and at two blocks an SM).
+//
+// The guides hold the answer only for draws in [0, 1), where every hashed
+// uniform lies; the sampler takes any float.  Its global instance reads
+// slice 0 for a draw outside [0, 1) (NaN too), and after the bracketed
+// search of that CDF a lane holding such a draw runs the full search and
+// its clamp over the same tables, off the in-range draws' chain of loads.
+// The collapsed tails leave what every index a full search returns selects
+// as it was (tests/test_torch_bokeh_planes.py), so the sampler's bits are
+// those of the packed tables' full search on every input.
 //
 // Packed tables (floats; the host builds them once per image):
 //   [0, h) cdf_row | [h, 2h) dy_srow | [2h, 2h + h*ws) cdf_col_s |
@@ -171,15 +186,98 @@ __device__ __forceinline__ void store4(float* dx, float* dy, int i0, int n,
   }
 }
 
-// The sampler.  kShared: tables copied into shared memory, else read in
-// global memory.  vec: every pointer it reads or writes per draw is 16-byte
-// aligned.
+// The guide tables after the plane entry's packed tables (layout above) and
+// the host's arguments for them.
+struct Guides {
+  const float* row;  // the row guide, kr words
+  const float* col;  // the column guides, kc words a sorted row
+  float kr, kc;      // 2^log2_kr, 2^log2_kc
+  int log2_kc, steps_r, steps_c;
+};
+
+__device__ __forceinline__ Guides guides_of(const float* t, int h, int w,
+                                            int log2_kr, int log2_kc,
+                                            int steps_r, int steps_c) {
+  const float* row = t + ((2 * h * (w + 2) + 3) & ~3);  // word bits
+  return {row, row + (1 << log2_kr), (float)(1 << log2_kr),
+          (float)(1 << log2_kc), log2_kc, steps_r, steps_c};
+}
+
+// Four draws (a[k], b[k]) through the guides g of the plane entry's tables
+// t: slice a * kr of the row guide and a bracketed search of the row CDF,
+// then slice b * kc of sorted row r's column guide and a bracketed search
+// of its CDF.  kAnyDraw: a draw outside [0, 1), where the guides do not
+// hold, reads slice 0, then takes the full search and its clamp (header);
+// else every draw is in [0, 1).
+template <bool kAnyDraw>
+__device__ __forceinline__ void guided_draws4(const float* t, int h, int w,
+                                              const Guides& g,
+                                              const float (&a)[kDraws],
+                                              const float (&b)[kDraws],
+                                              float (&ox)[kDraws],
+                                              float (&oy)[kDraws]) {
+  const int ws = w + 1;
+  const float* cdf_row = t;
+  const float* dy_srow = t + h;
+  const float* cdf_col = t + 2 * h;
+  const float* dx_col = cdf_col + h * ws;
+  bool in_a[kDraws], in_b[kDraws];
+  bool all_a = true, all_b = true;
+#pragma unroll
+  for (int k = 0; k < kDraws; ++k) {
+    in_a[k] = !kAnyDraw || (0.0f <= a[k] && a[k] < 1.0f);
+    in_b[k] = !kAnyDraw || (0.0f <= b[k] && b[k] < 1.0f);
+    all_a = all_a && in_a[k];
+    all_b = all_b && in_b[k];
+  }
+  uint32_t word[kDraws];
+  int r[kDraws], c[kDraws], off[kDraws];
+#pragma unroll
+  for (int k = 0; k < kDraws; ++k) {
+    // u * K is exact and below K
+    word[k] = __float_as_uint(g.row[(int)((in_a[k] ? a[k] : 0.0f) * g.kr)]);
+    off[k] = 0;
+  }
+  bracket_search4(cdf_row, word, off, g.steps_r, a, r);
+  if (kAnyDraw && !all_a) {
+    int full[kDraws];
+    upper_bound4(cdf_row, off, h, a, full);
+#pragma unroll
+    for (int k = 0; k < kDraws; ++k)
+      if (!in_a[k]) r[k] = full[k] < h - 1 ? full[k] : h - 1;
+  }
+#pragma unroll
+  for (int k = 0; k < kDraws; ++k) {
+    const int j = (r[k] << g.log2_kc) + (int)((in_b[k] ? b[k] : 0.0f) * g.kc);
+    word[k] = __float_as_uint(g.col[j]);
+    off[k] = r[k] * ws;
+  }
+  bracket_search4(cdf_col, word, off, g.steps_c, b, c);
+  if (kAnyDraw && !all_b) {
+    int full[kDraws];
+    upper_bound4(cdf_col, off, w, b, full);
+#pragma unroll
+    for (int k = 0; k < kDraws; ++k)
+      if (!in_b[k]) c[k] = off[k] + (full[k] < w - 1 ? full[k] : w - 1);
+  }
+#pragma unroll
+  for (int k = 0; k < kDraws; ++k) {
+    ox[k] = dx_col[c[k]];
+    oy[k] = dy_srow[r[k]];
+  }
+}
+
+// The sampler.  kShared: the packed tables, copied into shared memory and
+// searched in full; else the plane entry's tables with their guides, read
+// in global memory (guided_draws4, any draw; log2_kr to steps_c are their
+// arguments, which the shared instance ignores).  vec: every pointer it
+// reads or writes per draw is 16-byte aligned.
 template <bool kShared>
 __global__ void __launch_bounds__(kBlock)
 bokeh_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
              const float* __restrict__ tab, float* __restrict__ dx,
              float* __restrict__ dy, int n, int h, int w, int n_tab,
-             bool vec) {
+             bool vec, int log2_kr, int log2_kc, int steps_r, int steps_c) {
   extern __shared__ float4 smem[];
   const float* t = stage<kShared, kBlock>(tab, n_tab, smem);
   const int ws = w + 1;
@@ -205,20 +303,28 @@ bokeh_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
         b[k] = i0 + k < n ? u2[i0 + k] : 0.0f;
       }
     }
-    int r[kDraws], c[kDraws], off[kDraws] = {0, 0, 0, 0};
-    upper_bound4(cdf_row, off, h, a, r);
-#pragma unroll
-    for (int k = 0; k < kDraws; ++k) {
-      r[k] = r[k] < h - 1 ? r[k] : h - 1;  // past-the-end clamp (zoic.cpp:435)
-      off[k] = r[k] * ws;
-    }
-    upper_bound4(cdf_col, off, w, b, c);
     float ox[kDraws], oy[kDraws];
+    if constexpr (kShared) {
+      int r[kDraws], c[kDraws], off[kDraws] = {0, 0, 0, 0};
+      upper_bound4(cdf_row, off, h, a, r);
 #pragma unroll
-    for (int k = 0; k < kDraws; ++k) {
-      c[k] = c[k] < w - 1 ? c[k] : w - 1;  // global-index clamp (zoic.cpp:461)
-      ox[k] = dx_col[off[k] + c[k]];
-      oy[k] = dy_srow[r[k]];
+      for (int k = 0; k < kDraws; ++k) {
+        // past-the-end clamp (zoic.cpp:435)
+        r[k] = r[k] < h - 1 ? r[k] : h - 1;
+        off[k] = r[k] * ws;
+      }
+      upper_bound4(cdf_col, off, w, b, c);
+#pragma unroll
+      for (int k = 0; k < kDraws; ++k) {
+        // global-index clamp (zoic.cpp:461)
+        c[k] = c[k] < w - 1 ? c[k] : w - 1;
+        ox[k] = dx_col[off[k] + c[k]];
+        oy[k] = dy_srow[r[k]];
+      }
+    } else {
+      guided_draws4<true>(
+          t, h, w, guides_of(t, h, w, log2_kr, log2_kc, steps_r, steps_c), a,
+          b, ox, oy);
     }
     store4(dx, dy, i0, n, full, ox, oy);
   }
@@ -237,43 +343,19 @@ bokeh_planes_kernel(const float* __restrict__ tab, float* __restrict__ dx,
                     uint32_t salt2) {
   extern __shared__ float4 smem[];
   const float* t = stage<kShared, kPlaneBlock>(tab, n_tab, smem);
-  const int ws = w + 1;
-  const float* cdf_row = t;
-  const float* dy_srow = t + h;
-  const float* cdf_col = t + 2 * h;
-  const float* dx_col = cdf_col + h * ws;
-  const float* guide_row = t + ((2 * h * (w + 2) + 3) & ~3);  // word bits
-  const float* guide_col = guide_row + (1 << log2_kr);
-  const float kr = (float)(1 << log2_kr), kc = (float)(1 << log2_kc);
+  const Guides g = guides_of(t, h, w, log2_kr, log2_kc, steps_r, steps_c);
   const int steps = (n >> 2) + ((n & 3) != 0);
   for (int q = blockIdx.x * kPlaneBlock + threadIdx.x; q < steps;
        q += gridDim.x * kPlaneBlock) {
     const int i0 = q * kDraws;
     float a[kDraws], b[kDraws];
-    uint32_t g[kDraws];
-    int r[kDraws], c[kDraws], off[kDraws];
 #pragma unroll
     for (int k = 0; k < kDraws; ++k) {
       a[k] = zoic::hash_uniform((uint32_t)(i0 + k), pseed, 0u, salt1);
       b[k] = zoic::hash_uniform((uint32_t)(i0 + k), pseed, 0u, salt2);
-      // u * K is exact and below K
-      g[k] = __float_as_uint(guide_row[(int)(a[k] * kr)]);
-      off[k] = 0;
     }
-    bracket_search4(cdf_row, g, off, steps_r, a, r);
-#pragma unroll
-    for (int k = 0; k < kDraws; ++k) {
-      const int j = (r[k] << log2_kc) + (int)(b[k] * kc);
-      g[k] = __float_as_uint(guide_col[j]);
-      off[k] = r[k] * ws;
-    }
-    bracket_search4(cdf_col, g, off, steps_c, b, c);
     float ox[kDraws], oy[kDraws];
-#pragma unroll
-    for (int k = 0; k < kDraws; ++k) {
-      ox[k] = dx_col[c[k]];
-      oy[k] = dy_srow[r[k]];
-    }
+    guided_draws4<false>(t, h, w, g, a, b, ox, oy);  // hashes are in [0, 1)
     store4(dx, dy, i0, n, vec && n - i0 >= kDraws, ox, oy);
   }
 }
@@ -296,12 +378,24 @@ int prepare(const void* fn, int smem) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// The packed tables' checks common to both entries: sizes, 16-byte
-// alignment, at least the `need` floats of their layout.
-bool tables_ok(int h, int w, int n_tab, int64_t need, int grid,
+// The tables' checks common to both entries: sizes, 16-byte alignment, at
+// least the floats of their layout; with `guides`, the guides' arguments in
+// range (u * K exact, no bracket of 2^31 entries) and their words after the
+// packed tables.
+bool tables_ok(int h, int w, int n_tab, bool guides, int log2_kr,
+               int log2_kc, int steps_r, int steps_c, int grid,
                const float* tab) {
-  return h >= 1 && w >= 1 && grid >= 1 && (n_tab & 3) == 0 &&
-         (int64_t)n_tab >= need && aligned16(tab);
+  if (h < 1 || w < 1 || grid < 1 || (n_tab & 3) != 0 || !aligned16(tab))
+    return false;
+  int64_t need = 2 * (int64_t)h * (w + 2);
+  if (guides) {
+    if (log2_kr < 0 || log2_kr > 24 || log2_kc < 0 || log2_kc > 24 ||
+        steps_r < 0 || steps_r > 31 || steps_c < 0 || steps_c > 31)
+      return false;
+    need = (need + 3) / 4 * 4 + ((int64_t)1 << log2_kr) +
+           ((int64_t)h << log2_kc);
+  }
+  return (int64_t)n_tab >= need;
 }
 
 }  // namespace
@@ -334,14 +428,18 @@ extern "C" int zoic_bokeh_blocks_per_sm(int shared, int hash, int smem) {
 }
 
 // Launch `grid` blocks on `stream` over n draws; returns cudaGetLastError()
-// as an int (0 = success).  tab: the packed tables ([n_tab] floats, device
-// memory, 16-byte aligned); shared: copy them into shared memory.
+// as an int (0 = success).  tab: [n_tab] floats of device memory, 16-byte
+// aligned.  shared: the packed tables, copied into shared memory (the guide
+// arguments unread); else the plane entry's tables with their guides
+// (as zoic_bokeh_planes_launch takes them), searched in global memory.
 extern "C" int zoic_bokeh_launch(const float* u1, const float* u2,
                                  const float* tab, float* dx, float* dy,
-                                 int n, int h, int w, int n_tab, int shared,
-                                 int grid, void* stream) {
+                                 int n, int h, int w, int n_tab, int log2_kr,
+                                 int log2_kc, int steps_r, int steps_c,
+                                 int shared, int grid, void* stream) {
   if (n <= 0) return 0;
-  if (!tables_ok(h, w, n_tab, 2 * (int64_t)h * (w + 2), grid, tab))
+  if (!tables_ok(h, w, n_tab, shared == 0, log2_kr, log2_kc, steps_r,
+                 steps_c, grid, tab))
     return (int)cudaErrorInvalidValue;
   const void* fn = instance(shared != 0, false);
   const int smem = shared ? n_tab * (int)sizeof(float) : 0;
@@ -350,8 +448,9 @@ extern "C" int zoic_bokeh_launch(const float* u1, const float* u2,
   const bool vec = aligned16(dx) && aligned16(dy) && aligned16(u1) &&
                    aligned16(u2);
   (shared ? bokeh_kernel<true> : bokeh_kernel<false>)
-      <<<grid, kBlock, smem, (cudaStream_t)stream>>>(u1, u2, tab, dx, dy, n,
-                                                     h, w, n_tab, vec);
+      <<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+          u1, u2, tab, dx, dy, n, h, w, n_tab, vec, log2_kr, log2_kc, steps_r,
+          steps_c);
   return (int)cudaGetLastError();
 }
 
@@ -368,12 +467,8 @@ extern "C" int zoic_bokeh_planes_launch(const float* tab, float* dx,
                                         int steps_r, int steps_c, int shared,
                                         int grid, void* stream) {
   if (n_cells <= 0) return 0;
-  if (log2_kr < 0 || log2_kr > 24 || log2_kc < 0 || log2_kc > 24 ||
-      steps_r < 0 || steps_r > 31 || steps_c < 0 || steps_c > 31 ||
-      !tables_ok(h, w, n_tab,
-                 (2 * (int64_t)h * (w + 2) + 3) / 4 * 4 +
-                     ((int64_t)1 << log2_kr) + ((int64_t)h << log2_kc),
-                 grid, tab))
+  if (!tables_ok(h, w, n_tab, true, log2_kr, log2_kc, steps_r, steps_c, grid,
+                 tab))
     return (int)cudaErrorInvalidValue;
   const void* fn = instance(shared != 0, true);
   const int smem = shared ? n_tab * (int)sizeof(float) : 0;

@@ -20,13 +20,16 @@ retry planes of raytraced + image bokeh (the counter hash of each plane
 cell, then the inversion) in one launch of the same source, and runs
 :func:`planes_plain` for an image on the CPU.
 
-The kernel reads the tables packed by :func:`packed_tables`, the per-row
-ones in sorted-row order with a row stride of ``w + 1``; it copies them
-into a block's shared memory when they fit (:func:`uses_smem`), else
-searches them in global memory.  The plane entry reads its own copy,
-:func:`plane_tables`: flat CDF tails collapsed, and guide tables after
-them that narrow each search to a bracket of the slice of ``[0, 1)`` its
-hashed uniform falls in.
+The sampler reads the tables packed by :func:`packed_tables`, the per-row
+ones in sorted-row order with a row stride of ``w + 1``, and copies them
+into a block's shared memory when they fit (:func:`uses_smem`).  The plane
+entry reads its own copy, :func:`plane_tables`: flat CDF tails collapsed,
+and guide tables after them that narrow each search to a bracket of the
+slice of ``[0, 1)`` its hashed uniform falls in.  Where the packed tables
+do not fit a block, the sampler searches the plane entry's tables in
+global memory, the same cached :class:`PlaneTables` for both entries, and
+through their guides: a draw outside ``[0, 1)``, for which the guides do
+not hold, takes the full search over the same tables, with the same bits.
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ Tensor = torch.Tensor
 
 # launches of the CUDA kernel by sample_fused and by planes_fused (plain
 # CPU runs not counted), and of those the launches whose tables were
-# searched in global memory (too large for a block's shared memory)
+# searched in global memory (too large for a block's shared memory): for
+# the sampler, its guided search of the plane tables (the draws outside
+# [0, 1) that take the full search are not counted)
 launches = 0
 plane_launches = 0
 global_launches = 0
@@ -260,6 +265,8 @@ _CARD: dict = {}
 
 
 def _kernel_tables(image: BokehImage, dev, planes: bool):
+    """The packed tables of ``image`` on ``dev``, or with ``planes`` its
+    :class:`PlaneTables`, from the cache or built into it."""
     key = (id(image), str(dev), planes)
     hit = _TABLES.get(key)
     if hit is not None and hit[0]() is image:
@@ -277,12 +284,11 @@ def _kernel_tables(image: BokehImage, dev, planes: bool):
 
 
 def _plan(image: BokehImage, n: int, hash_: bool, dev):
-    """``(tables, shared, grid)`` of a launch over ``n`` draws: the packed
-    tables, or with ``hash_`` the plane entry's :class:`PlaneTables`, whose
-    grid takes one block an SM when the tables are in shared memory (every
-    block copies them in)."""
-    tables = _kernel_tables(image, dev, hash_)
-    packed = tables.words if hash_ else tables
+    """``(tables, shared, grid)`` of a launch over ``n`` draws: with
+    ``hash_`` the plane entry's, whose grid takes one block an SM when its
+    tables are in shared memory (every block copies them in); else the
+    sampler's.  The tables are :class:`PlaneTables`, or the packed tables
+    for the sampler in shared memory."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     limit = _CARD.get(index)
     if limit is None:
@@ -292,7 +298,10 @@ def _plan(image: BokehImage, n: int, hash_: bool, dev):
             raise RuntimeError("bokeh kernel: shared-memory limit query failed")
         _CARD[index] = limit
     shared = uses_smem(image.height, image.width, limit, hash_)
-    smem = 4 * packed.numel() if shared else 0
+    guided = hash_ or not shared
+    tables = _kernel_tables(image, dev, guided)
+    words = tables.words if guided else tables
+    smem = 4 * words.numel() if shared else 0
     sms, per_sm = _launch.blocks_per_sm(
         "bokeh", "zoic_bokeh_blocks_per_sm", [ctypes.c_int] * 3, dev,
         int(shared), int(hash_), smem)
@@ -302,7 +311,7 @@ def _plan(image: BokehImage, n: int, hash_: bool, dev):
     return tables, shared, persistent_grid(n, sms, per_sm)
 
 
-_SAMPLE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_SAMPLE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                     + [ctypes.c_void_p])
 _PLANES_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                     + [ctypes.c_uint32] * 3 + [ctypes.c_int] * 9
@@ -314,7 +323,8 @@ def sample_fused(image: BokehImage, u_row: Tensor,
     """Bokeh CDF inversion over flat ``[B]`` uniforms: returns
     ``(dx[B], dy[B])`` f32.  CUDA tensors launch ``csrc/bokeh.cu``, for
     every image size :func:`zoic_tpu_torch.bokeh.build` makes; CPU tensors
-    run :func:`sample_plain`."""
+    run :func:`sample_plain`.  Tables too large for a block's shared
+    memory are searched through the plane entry's guides."""
     global launches, global_launches
     with span("zoic.bokeh.sample"):
         if u_row.device.type == "cpu":
@@ -326,12 +336,13 @@ def sample_fused(image: BokehImage, u_row: Tensor,
                                ((b,), torch.float32))
         if b == 0:
             return dx, dy
-        packed, shared, grid = _plan(image, b, False, dev)
+        t, shared, grid = _plan(image, b, False, dev)
+        words, guides = (t, (0, 0, 0, 0)) if shared else (t.words, t[1:])
         _launch.launch(
             _launch.bind("bokeh", "zoic_bokeh_launch", _SAMPLE_ARGTYPES),
             "bokeh", dev, u_row.data_ptr(), u_col.data_ptr(),
-            packed.data_ptr(), dx.data_ptr(), dy.data_ptr(), b, image.height,
-            image.width, packed.numel(), int(shared), grid,
+            words.data_ptr(), dx.data_ptr(), dy.data_ptr(), b, image.height,
+            image.width, words.numel(), *guides, int(shared), grid,
         )
         launches += 1
         global_launches += int(not shared)
