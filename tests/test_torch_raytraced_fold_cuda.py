@@ -17,8 +17,9 @@ of 32 dead keys, and outputs off the 16-byte alignment (which must take
 the per-ray store); the counting build's ``whole_tiles`` against the
 wholly dead tiles counted from the plain prologue; ``raytraced_fused``'s
 outputs against the digests of the bits it gave before the finished-ray
-mode existed; the launch counter.  Without a card each test skips: the
-kernel has no CPU mode.
+mode existed; the launch counter; the kernel's draws and traces against
+the plain version's count, with and without a profiler recording.
+Without a card each test skips: the kernel has no CPU mode.
 """
 
 import dataclasses
@@ -27,11 +28,13 @@ import hashlib
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import zoic_tpu_torch as zpt
 from zoic_tpu_torch.ops import _launch
 from zoic_tpu_torch.ops import epilogue_kernel as ek
 from zoic_tpu_torch.ops import trace_kernel as tk
+from zoic_tpu_torch.utils import profiling
 
 SEED = 99
 MAX_TRIES = 25
@@ -224,7 +227,7 @@ def _entry_launch(st, lens, args, kw, outs, stats, ex, count=False):
     _launch.launch(
         fn, "raytraced", args[0].device, *(a.data_ptr() for a in args),
         None, None, *pointers, outs[0], outs[1], None, None, ex.data_ptr(),
-        *outs[2:], stats.data_ptr(), n, elems.shape[0], shap.shape[0],
+        *outs[2:], stats.data_ptr(), None, n, elems.shape[0], shap.shape[0],
         prof.shape[1], v.iris_idx, kw["max_tries"] + 1, SEED, word,
         tk.PRECHECK_DRAWS, 0, 0, 0, 0, 0,
         tk.persistent_grid(n, *_launch.blocks_per_sm(
@@ -252,7 +255,7 @@ def test_unaligned_outputs_take_the_per_ray_store(cuda_dev, n):
     _launch.reset_counts("raytraced")
     _entry_launch(st, st.lens, args, kw, [b.data_ptr() + 4 for b in bufs],
                   stats, ex, count=True)
-    whole = _launch.read_counts("raytraced", 5)[4]
+    whole = _launch.read_counts("raytraced", 3)[2]
     got = [b[1:].reshape(w.shape) for b, w in zip(bufs, want)] + [stats]
     _assert_bits_equal(got, want)
     assert whole == 0
@@ -281,12 +284,12 @@ def test_the_entry_refuses_bad_pointers(cuda_dev):
             MAX_TRIES + 1, SEED, tk.variant_word(v, False),
             tk.PRECHECK_DRAWS, 0, 0, 0, 0, 0, 4]
     p = out.data_ptr()
-    for mid in ((None, None, ex.data_ptr(), p, p, p, None),
-                (p, None, None, None, None, None, None)):
+    for mid in ((None, None, ex.data_ptr(), p, p, p, None, None),
+                (p, None, None, None, None, None, None, None)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             _launch.launch(fn, "raytraced", cuda_dev, *head, *mid, 64, *tail)
     _launch.launch(fn, "raytraced", cuda_dev, *head, None, None,
-                   ex.data_ptr(), p, p, p, stats.data_ptr(), 0, *tail)
+                   ex.data_ptr(), p, p, p, stats.data_ptr(), None, 0, *tail)
     torch.cuda.synchronize()
     assert stats.tolist() == [0, 0, 0, 0]
     before = tk.raytraced_rays_launches
@@ -329,3 +332,33 @@ def test_raytraced_fused_keeps_its_bits(cuda_dev, word):
     args, kw = _inputs(word, 100_003, flags, cuda_dev)
     fused = tk.raytraced_fused(lens, *args, st.sensor_width, SEED, **kw)
     assert _digest(fused) == FUSED_DIGESTS[word]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16 * 128 + 77, 100_003])
+@pytest.mark.parametrize("word", [3, 11, 15, 31])
+def test_draws_and_traces_equal_the_plain_count(cuda_dev, word, n):
+    """The kernel handed a totals buffer adds the plain version's draws
+    and traces (computed on the card) exactly, and writes the bits of a
+    launch without one; under a profiler the entry adds the same counts
+    to the device's totals and nothing outside one."""
+    st, lens, flags = _realise(word, cuda_dev)
+    args, kw = _inputs(word, n, flags, cuda_dev)
+    kw = dict(dict(retry_u1=None, retry_u2=None), **kw)
+    ex = torch.tensor(-0.5, dtype=torch.float32, device=cuda_dev)
+    call = (lens, *args, st.sensor_width, SEED, ex)
+    profiling.take_counters()
+    bare = tk.raytraced_rays(*call, **kw)
+    assert set(profiling.take_counters().values()) == {0}
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda_dev)
+    _assert_bits_equal(tk._raytraced_launch(*call, counts=counts, **kw),
+                       bare)
+    want = torch.zeros(2, dtype=torch.int64, device=cuda_dev)
+    tk.raytraced_rays_plain(*call, counts=want, **kw)
+    assert counts.tolist() == want.tolist()
+    draws, traces = want.tolist()
+    assert 0 < traces <= draws and draws >= int((bare[2] != 0).sum())
+    with profile(activities=[ProfilerActivity.CPU]):
+        _assert_bits_equal(tk.raytraced_rays(*call, **kw), bare)
+    got = profiling.take_counters()
+    assert [got[k] for k in profiling.COUNTERS] == [draws, traces]

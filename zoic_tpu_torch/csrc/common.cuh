@@ -82,13 +82,19 @@ __device__ __forceinline__ float hash_uniform(uint32_t id, uint32_t seed,
 
 #ifdef ZOIC_COUNT_LANES
 // Lane-use counting (the kernels' counting builds): the first active lane of
-// the converged group adds the group's lanes to c[0] and one to c[1].
+// the converged group adds the group's lanes to c[0] and one to c[1]
+// (count_lanes), or one to c[0] alone (count_warps).
 __device__ __forceinline__ void count_lanes(unsigned long long* c) {
   const unsigned m = __activemask();
   if ((threadIdx.x & 31) == __ffs(m) - 1) {
     atomicAdd(&c[0], (unsigned long long)__popc(m));
     atomicAdd(&c[1], 1ull);
   }
+}
+
+__device__ __forceinline__ void count_warps(unsigned long long* c) {
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == __ffs(m) - 1) atomicAdd(c, 1ull);
 }
 #endif
 
@@ -177,6 +183,25 @@ __device__ __forceinline__ void add_counts(const Counts& c, int* stats) {
   __syncthreads();
   if (threadIdx.x < 4 && block_counts[threadIdx.x] != 0)
     atomicAdd(&stats[threadIdx.x], block_counts[threadIdx.x]);
+}
+
+// Add every thread's a and b to totals[0] and totals[1] (64-bit), reduced
+// as add_counts reduces the counters.  Every thread of the block calls it.
+__device__ __forceinline__ void add_totals(int a, int b,
+                                           unsigned long long* totals) {
+  const unsigned all = 0xffffffffu;
+  __shared__ unsigned long long block_totals[2];
+  if (threadIdx.x < 2) block_totals[threadIdx.x] = 0ull;
+  __syncthreads();
+  const unsigned wa = __reduce_add_sync(all, (unsigned)a);
+  const unsigned wb = __reduce_add_sync(all, (unsigned)b);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&block_totals[0], (unsigned long long)wa);
+    atomicAdd(&block_totals[1], (unsigned long long)wb);
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 && block_totals[threadIdx.x] != 0ull)
+    atomicAdd(&totals[threadIdx.x], block_totals[threadIdx.x]);
 }
 
 }  // namespace zoic

@@ -103,13 +103,19 @@
 // every lane of a warp leaves the loop together, since the ring positions
 // are the same in every lane.
 //
+// Draws and traces.  Each lane counts, in two registers, the aperture
+// draws it makes (the caller's included) and the draws that go on to the
+// element trace (those the bound passes; every draw without the
+// pre-check); a launch handed a totals buffer (counts, two 64-bit words)
+// adds them there once a block, as the counters (add_totals).
+//
 // Rounding: built with --fmad=false and IEEE division and square root so
 // that every operation rounds like the eager PyTorch version
 // (zoic_tpu_torch/ops/trace_kernel.py:raytraced_plain), in the same order.
 //
-// Built with ZOIC_COUNT_LANES the kernel also counts the lanes and the
-// converged groups of a warp that enter a trace and that take a draw, and
-// the dead tiles stored whole.
+// Built with ZOIC_COUNT_LANES the kernel also counts the converged groups
+// of a warp that enter a trace and that take a draw, and the dead tiles
+// stored whole; the lanes are the draws and traces above.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -143,15 +149,15 @@ constexpr int kPresampled = 16; // image-bokeh offsets and retry planes
   X(16) X(17) X(18) X(19) X(22) X(23) X(26) X(27) X(30) X(31)
 
 #ifdef ZOIC_COUNT_LANES
-// Lane-use counters of the counting build: [0] lanes and [1] warps that
-// entered a trace, [2] lanes and [3] warps that took an aperture draw, [4]
-// the dead tiles stored whole.
-constexpr int kCounts = 5;
+// Lane-use counters of the counting build: the converged groups of a warp
+// that [0] entered a trace and [1] took an aperture draw, [2] the dead
+// tiles stored whole.
+constexpr int kCounts = 3;
 __device__ unsigned long long g_counts[kCounts];
-#define COUNT_LANES(slot) count_lanes(g_counts + (slot))
-#define COUNT_WHOLE_TILE() atomicAdd(g_counts + 4, 1ull)
+#define COUNT_WARPS(slot) count_warps(g_counts + (slot))
+#define COUNT_WHOLE_TILE() atomicAdd(g_counts + 2, 1ull)
 #else
-#define COUNT_LANES(slot)
+#define COUNT_WARPS(slot)
 #define COUNT_WHOLE_TILE()
 #endif
 
@@ -171,6 +177,7 @@ struct Params {
   const float* exposure;
   float *weight, *d_ody, *d_ddy;
   int* stats;
+  unsigned long long* counts;  // null: draws and traces not added
   bool vec;  // the five float outputs 16-byte aligned: dead tiles whole
 };
 
@@ -199,7 +206,7 @@ __device__ __forceinline__ float sqrt_pos(float x) {
 __device__ __forceinline__ bool trace(const Params& p, float ox, float oy,
                                       float oz, float dx, float dy, float dz,
                                       Payload& out, bool& tir_any) {
-  COUNT_LANES(0);
+  COUNT_WARPS(0);
   float inv = rsqrtf(dx * dx + dy * dy + dz * dz);
   dx = dx * inv;
   dy = dy * inv;
@@ -494,6 +501,7 @@ raytraced_kernel(const __grid_constant__ Params p) {
   const int max_total = p.max_total;
   const int per_round = use_profile ? p.k_draws : 1;
   Counts c;  // the finished rays' counters, reduced after the loop
+  int lane_draws = 0, lane_traces = 0;  // reduced after the loop
   int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
   // ring positions, the same in every lane
   int t_head = 0, t_tail = 0, d_head = 0, d_tail = 0;
@@ -629,9 +637,11 @@ raytraced_kernel(const __grid_constant__ Params p) {
         const int n_draws =
             (use_profile && r.rnd == 0) ? per_round + 1 : per_round;
         draw<V>(p, r, j, u1v, u2v, lx, ly);
-        COUNT_LANES(2);
+        ++lane_draws;
+        COUNT_WARPS(1);
         if (!use_profile || bound_pass<circles>(lx, ly, r.pc)) {
           to_trace = true;
+          ++lane_traces;
           ++r.rnd;
           if (use_lut) {
             dx = lx * r.sa - ly * r.sb + r.kx;
@@ -703,6 +713,7 @@ raytraced_kernel(const __grid_constant__ Params p) {
     __syncwarp();
   }
   if (p.weight != nullptr) add_counts(c, p.stats);
+  if (p.counts != nullptr) add_totals(lane_draws, lane_traces, p.counts);
 }
 
 template <int V>
@@ -747,16 +758,17 @@ static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // they are not null, and the finished rays where weight is not null:
 // weight ([B]), d_ody, d_ddy ([B, 3]) and the four counters into stats
 // ([4] int32, zeroed on the same stream first), with the exposure (one
-// float) read on the card.
+// float) read on the card.  Where counts ([2] uint64) is not null the
+// kernel adds its draws and traces to it.
 extern "C" int zoic_raytraced_launch(
     const float* sx, const float* sy, const float* u1, const float* u2,
     const float* bu1, const float* bu2, const float* elems,
     const float* shap, const float* prof, const float* scal, float* origin,
     float* dir, int* tries, int* tir, const float* exposure, float* weight,
-    float* d_ody, float* d_ddy, int* stats, int B, int n_elems, int n_keys,
-    int n_coef, int iris_idx, int max_total, int seed, int variant,
-    int k_draws, int n_planes, int bp, int tile_rows, int plane_tiles,
-    int reuse, int grid, void* stream) {
+    float* d_ody, float* d_ddy, int* stats, unsigned long long* counts,
+    int B, int n_elems, int n_keys, int n_coef, int iris_idx, int max_total,
+    int seed, int variant, int k_draws, int n_planes, int bp, int tile_rows,
+    int plane_tiles, int reuse, int grid, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if ((tries == nullptr) != (tir == nullptr) ||
       (weight != nullptr &&
@@ -814,6 +826,7 @@ extern "C" int zoic_raytraced_launch(
   p.d_ody = d_ody;
   p.d_ddy = d_ddy;
   p.stats = stats;
+  p.counts = counts;
   p.vec = weight != nullptr && aligned16(origin) && aligned16(dir) &&
           aligned16(weight) && aligned16(d_ody) && aligned16(d_ddy);
   switch (variant) {

@@ -32,7 +32,11 @@ path, launches the same kernel writing the finished rays (weight,
 exposure, derivatives, counters) at its own store site in place of
 ``tries`` and ``tir``, for CUDA tensors, and runs
 :func:`raytraced_rays_plain` (:func:`raytraced_plain`, then
-``epilogue_plain``) for CPU tensors.
+``epilogue_plain``) for CPU tensors.  While a ``torch.profiler`` records,
+both entries add the call's aperture draws and the draws that go on to
+the element trace to the device's totals
+(``utils.profiling.counter_totals``); the plain versions take such a
+buffer as ``counts``.
 
 Port of ``zoic_tpu/ops/trace_kernel.py:_thinlens_kernel``: the pinhole
 direction, the depth-of-field refocus and the empirical-vignetting retry
@@ -57,7 +61,7 @@ import numpy as np
 import torch
 
 from ..system import LensSystem
-from ..utils.profiling import span
+from ..utils.profiling import counter_totals, span
 from . import _launch
 from .epilogue_kernel import epilogue_plain, exposure_on
 
@@ -565,9 +569,13 @@ def raytraced_plain(
     sensor_width, seed: int, *, max_tries: int, use_lut: bool = True,
     use_profile: bool = True, presampled: bool = False,
     retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
+    counts: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the kernel on any device: returns
-    ``(origin[B,3], dir[B,3], tries[B] i32, tir[B] i32)``.
+    ``(origin[B,3], dir[B,3], tries[B] i32, tir[B] i32)``, and adds to
+    ``counts`` (``int64 [2]``, where given) the aperture draws the rays
+    made (the caller's included) and those that went on to the element
+    trace, as the kernel counts them.
 
     It runs the TPU kernel's whole-tile loop (``compact=False``) over the
     rays still pending: round 0 and retry rounds ``1..max_tries+1``, each
@@ -599,6 +607,7 @@ def raytraced_plain(
     payload = [torch.zeros(b, dtype=torch.float32, device=dev)
                for _ in range(6)]
     ids = torch.arange(b, dtype=torch.int64, device=dev)
+    drawn = traced = 0  # the draws and traces ``counts`` takes
     if presampled:
         bu1, bu2 = _retry_planes(retry_u1, retry_u2, dev)
         n_planes, bp = bu1.shape
@@ -639,11 +648,14 @@ def raytraced_plain(
             take = can
             if v.use_profile:
                 take = can & _bound_pass(lx, ly, a_pcs, v.circles)
+            if counts is not None:
+                drawn += int(can.sum())
             cx = torch.where(take, lx, cx)
             cy = torch.where(take, ly, cy)
             found = found | take
         tries[act] = a_tries
         sel = found.nonzero().squeeze(1)
+        traced += sel.numel()
         if sel.numel() == 0:
             continue
         g = act[sel]
@@ -664,12 +676,15 @@ def raytraced_plain(
         ok[g] = nok
         tir[g] += ntir.to(torch.int32)
 
+    if counts is not None:
+        counts += torch.tensor([drawn, traced], dtype=counts.dtype,
+                               device=counts.device)
     origin = -torch.stack(payload[:3], dim=-1)
     direction = -torch.stack(payload[3:], dim=-1)
     return origin, direction, tries, tir
 
 
-_RAYTRACED_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 15
+_RAYTRACED_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
 
 # (id(lens), id(sensor_width), device, use_lut, use_profile) ->
@@ -753,11 +768,13 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
 
 def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, exposure=None,
                       *, max_tries, use_lut, use_profile, presampled,
-                      retry_u1, retry_u2, count=False):
+                      retry_u1, retry_u2, count=False, counts=None):
     """Check, allocate and launch ``csrc/raytraced.cu`` (its lane-counting
     build with ``count``); returns ``(origin, dir, tries, tir)``, or with
     ``exposure`` (a 0-d tensor on the inputs' card) the finished rays
-    ``(origin, dir, weight, d_ody, d_ddy, stats)``."""
+    ``(origin, dir, weight, d_ody, d_ddy, stats)``.  The kernel adds its
+    draws and traces to ``counts`` (``int64 [2]`` on the card) where
+    given."""
     seed = _check_seed(seed)
     b, dev = _launch.check_flat(
         (("sx", sx), ("sy", sy), ("u1", u1), ("u2", u2)))
@@ -799,6 +816,7 @@ def _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed, exposure=None,
         bu1.data_ptr() if bu1 is not None else None,
         bu2.data_ptr() if bu2 is not None else None,
         *pointers, out[0].data_ptr(), out[1].data_ptr(), *outputs,
+        counts.data_ptr() if counts is not None else None,
         b, elems.shape[0], shap.shape[0], prof.shape[1], v.iris_idx,
         max_tries + 1, seed, word, PRECHECK_DRAWS, n_planes, bp,
         tile_rows, plane_tiles, int(reuse),
@@ -828,14 +846,15 @@ def raytraced_fused(
     ``csrc/raytraced.cu``; CPU tensors run :func:`raytraced_plain`."""
     global launches
     with span("zoic.raytraced"):
+        if sx.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {sx.device}")
         kw = dict(max_tries=max_tries, use_lut=use_lut,
                   use_profile=use_profile, presampled=presampled,
-                  retry_u1=retry_u1, retry_u2=retry_u2)
+                  retry_u1=retry_u1, retry_u2=retry_u2,
+                  counts=counter_totals(sx.device))
         if sx.device.type == "cpu":
             return raytraced_plain(lens, sx, sy, u1, u2, sensor_width, seed,
                                    **kw)
-        if sx.device.type != "cuda":
-            raise ValueError(f"unsupported device {sx.device}")
         out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed,
                                 **kw)
         if sx.shape[0] > 0:
@@ -848,15 +867,16 @@ def raytraced_rays_plain(
     sensor_width, seed: int, exposure: Tensor, *, max_tries: int,
     use_lut: bool = True, use_profile: bool = True, presampled: bool = False,
     retry_u1: Optional[Tensor] = None, retry_u2: Optional[Tensor] = None,
+    counts: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of :func:`raytraced_rays` on any device:
-    :func:`raytraced_plain`, then ``epilogue_plain`` on its rays.  Returns
-    ``(origin[B,3], dir[B,3], weight[B], d_ody[B,3], d_ddy[B,3], stats
-    i32[4])``."""
+    :func:`raytraced_plain` (which adds to ``counts``), then
+    ``epilogue_plain`` on its rays.  Returns ``(origin[B,3], dir[B,3],
+    weight[B], d_ody[B,3], d_ddy[B,3], stats i32[4])``."""
     origin, direction, tries, tir = raytraced_plain(
         lens, sx, sy, u1, u2, sensor_width, seed, max_tries=max_tries,
         use_lut=use_lut, use_profile=use_profile, presampled=presampled,
-        retry_u1=retry_u1, retry_u2=retry_u2)
+        retry_u1=retry_u1, retry_u2=retry_u2, counts=counts)
     return (origin, direction) + epilogue_plain(
         tries, tir, origin, direction, exposure, max_tries)
 
@@ -879,15 +899,17 @@ def raytraced_rays(
     derivatives with each tile of 32 rays and again where a ray ends
     otherwise, adds the counters once a block and reads the exposure on
     the card: no pass reads the rays back); CPU tensors run
-    :func:`raytraced_rays_plain`."""
+    :func:`raytraced_rays_plain`.  While a profiler records, the call's
+    draws and traces go to ``utils.profiling.counter_totals``."""
     global raytraced_rays_launches
     with span("zoic.raytraced"):
-        kw = dict(max_tries=max_tries, use_lut=use_lut,
-                  use_profile=use_profile, presampled=presampled,
-                  retry_u1=retry_u1, retry_u2=retry_u2)
         dev = sx.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {dev}")
+        kw = dict(max_tries=max_tries, use_lut=use_lut,
+                  use_profile=use_profile, presampled=presampled,
+                  retry_u1=retry_u1, retry_u2=retry_u2,
+                  counts=counter_totals(dev))
         exposure = exposure_on(exposure, dev)
         if dev.type == "cpu":
             return raytraced_rays_plain(lens, sx, sy, u1, u2, sensor_width,
@@ -905,19 +927,21 @@ def raytraced_lane_use(
 ) -> Tuple[Tuple[Tensor, ...], dict]:
     """:func:`raytraced_rays` through the kernel's lane-counting build, on
     CUDA tensors: its outputs, and how full the warps were.  ``traces`` and
-    ``draws`` count the lanes that entered an element-stack trace or took
-    an aperture draw (the caller's included), ``warp_traces`` and
-    ``warp_draws`` the converged groups of a warp that did: lanes over
-    groups is the mean number of active lanes.  ``whole_tiles`` counts the
-    tiles of 32 rays, all dead keys, stored whole."""
+    ``draws`` are the kernel's own counts, the lanes that entered an
+    element-stack trace or took an aperture draw (the caller's included);
+    ``warp_traces`` and ``warp_draws`` the counting build's converged
+    groups of a warp that did: lanes over groups is the mean number of
+    active lanes.  ``whole_tiles`` counts the tiles of 32 rays, all dead
+    keys, stored whole."""
     kw = dict(dict(use_lut=True, use_profile=True, presampled=False,
                    retry_u1=None, retry_u2=None), **kw)
+    totals = torch.zeros(2, dtype=torch.int64, device=sx.device)
     _launch.reset_counts("raytraced")
     out = _raytraced_launch(lens, sx, sy, u1, u2, sensor_width, seed,
                             exposure_on(exposure, sx.device), count=True,
-                            **kw)
-    traces, warp_traces, draws, warp_draws, whole = _launch.read_counts(
-        "raytraced", 5)
+                            counts=totals, **kw)
+    warp_traces, warp_draws, whole = _launch.read_counts("raytraced", 3)
+    draws, traces = totals.tolist()
     return out, {"traces": traces, "warp_traces": warp_traces,
                  "draws": draws, "warp_draws": warp_draws,
                  "whole_tiles": whole}

@@ -3,12 +3,14 @@
 A warp runs an instruction for all its 32 lanes whether one or all of them
 need it, so a retry walk pays for idle lanes.  The camera kernels' counting
 builds (``ZOIC_COUNT_LANES``) add up, at the entry of every element-stack
-trace and every aperture draw, the lanes that are active and the converged
-groups of a warp that they form.  This tool runs them at the benchmark's
-batch on five raytraced cameras (the headline, naive shaping, the fisheye,
-the telephoto at focus 100 cm and the Petzval at focus 1000 cm) and on the
-thin-lens camera with vignetting, and prints per camera one line and at the
-end one JSON line:
+trace and every aperture draw, the converged groups of a warp that enter
+it, and the thin lens's build the lanes that are active; the raytraced
+kernel's lanes are its own draws and traces, the counts every build keeps
+(``zoic.raytraced.draws`` and ``.traces``).  This tool runs them at the
+benchmark's batch on five raytraced cameras (the headline, naive shaping,
+the fisheye, the telephoto at focus 100 cm and the Petzval at focus 1000
+cm) and on the thin-lens camera with vignetting, and prints per camera one
+line and at the end one JSON line:
 
 * ``traces_per_ray`` and ``draws_per_ray``: the work the rays need;
 * ``warp_traces_per_warp``: trace passes a warp of 32 rays pays for;

@@ -13,6 +13,13 @@ list is in README.md), and only while a ``torch.profiler`` records: then
 each is a ``record_function`` range on the profiler's clock, and each
 kernel ties to the span that launched it.  With no profiler recording a
 span is one flag read.
+
+Beside the spans, the port keeps counters that the same flag switches on:
+the raytraced kernel's aperture draws and the draws that go on to its
+element trace (:data:`COUNTERS`).  While a profiler records, a wrapper
+hands its kernel the device's totals (:func:`counter_totals`), which the
+kernel adds to on the card; :func:`take_counters` reads them as ints and
+resets them.  With no profiler recording nothing is counted or read.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import contextlib
 import os
 import statistics
 import time
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -43,6 +50,41 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+# the counters' names, in the order of a totals tensor's entries
+COUNTERS = ("zoic.raytraced.draws", "zoic.raytraced.traces")
+# device -> int64 [len(COUNTERS)] totals on it
+_TOTALS: Dict[torch.device, torch.Tensor] = {}
+
+
+def counter_totals(device) -> Optional[torch.Tensor]:
+    """The ``int64`` totals of :data:`COUNTERS` on ``device`` (zeros at
+    first use) while a ``torch.profiler`` records, for a wrapper to hand
+    its kernel, which adds to them; else None, so that an unprofiled call
+    pays one flag read and counts nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    totals = _TOTALS.get(dev)
+    if totals is None:
+        totals = _TOTALS[dev] = torch.zeros(len(COUNTERS), dtype=torch.int64,
+                                            device=dev)
+    return totals
+
+
+def take_counters() -> Dict[str, int]:
+    """Each counter of :data:`COUNTERS` summed over the devices as an int
+    (a read-back that waits for the kernels that add to it), then every
+    device's totals reset to 0."""
+    out = dict.fromkeys(COUNTERS, 0)
+    for totals in _TOTALS.values():
+        for name, v in zip(COUNTERS, totals.tolist()):
+            out[name] += v
+        totals.zero_()
+    return out
 
 
 @contextlib.contextmanager
