@@ -10,7 +10,8 @@ Every comparison is of bits: the kernel path of ``fit_circles`` and
 with ``reach_plain`` and ``pick_plain``; ``reach_at_plain``) on the same
 cover traces, made on the card as the compile makes them, the ``pick``
 entry against ``pick_plain``, and a compile on the card against the same
-compile with both dispatchers sent to the plain route.  Without a card
+compile with both dispatchers sent to the plain route, and with the
+pre-check's reductions (``ops/precheck_reduce``) sent there too.  Without a card
 each test skips: the kernel has no CPU mode.
 """
 
@@ -21,9 +22,12 @@ import pytest
 import torch
 from _circles_cases import planted
 
+from torch.profiler import ProfilerActivity, profile
+
 import zoic_tpu_torch as zpt
 from zoic_tpu_torch import pupil as tp
 from zoic_tpu_torch.ops import circles_kernel as ck
+from zoic_tpu_torch.ops import precheck_reduce as pr
 
 COMPILE_N = 50_000
 FIT = ck.fit_circles
@@ -163,3 +167,47 @@ def test_compile_on_card_equals_numpy_fit(cuda_dev, camera, monkeypatch,
         assert g.is_cuda and torch.equal(g.view(torch.int32),
                                          w.view(torch.int32)), f
     assert dataclasses.is_dataclass(gp)
+
+
+def _camera_config(camera, tmp_path, focus=None):
+    cam = zpt.data.CAMERAS[camera]
+    bokeh = tmp_path / "disk64.npy"
+    np.save(bokeh, zpt.data.bokeh_disk(64))
+    cfg = zpt.CameraConfig(lens_model=zpt.LensModel.RAYTRACED,
+                           lens_data_path=zpt.data.lens_path(cam.lens),
+                           bokeh_path=str(bokeh) if cam.use_image else "",
+                           **cam.config_kwargs())
+    return cfg if focus is None else cfg.replace(focal_distance=focus)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("focus", [None, 1000.0])
+@pytest.mark.parametrize("camera", list(zpt.data.CAMERAS))
+def test_compile_on_card_equals_numpy_precheck(cuda_dev, camera, focus,
+                                               monkeypatch, tmp_path):
+    """A camera compiled on the card, at its own focus and at 1000 cm, with
+    the pre-check's reductions on the card (``ops/precheck_reduce``: 9
+    calls a compile, 12 where the circle poly is fitted) has the bits of
+    the same compile with them, the circle fit and the smoothing's reach
+    all in numpy: the profile's chains, polynomial and scale, the form,
+    the poly flag and the dead film.  The host's trig opens its span
+    ``zoic.precheck.trig`` once a compile."""
+    cfg = _camera_config(camera, tmp_path, focus)
+    before = pr.calls
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = zpt.compile_camera(cfg, cuda_dev).lens
+    assert pr.calls - before in (9, 12)
+    assert [e.name for e in prof.events()].count("zoic.precheck.trig") == 1
+    after = pr.calls
+    _numpy_dispatch(monkeypatch)
+    monkeypatch.setattr(pr, "on_card", lambda t: False)
+    want = zpt.compile_camera(cfg, cuda_dev).lens
+    assert pr.calls == after
+    for f in ("profile_domain", "profile_poly", "dead_frac"):
+        assert getattr(got, f) == getattr(want, f), f
+    gp, wp = got.profile, want.profile
+    assert gp.kind == wp.kind
+    for f in ("keys", "c0", "c1", "c2", "c4", "poly", "poly_scale"):
+        g, w = getattr(gp, f), getattr(wp, f)
+        assert g.is_cuda and torch.equal(g.view(torch.int32),
+                                         w.view(torch.int32)), f

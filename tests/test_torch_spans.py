@@ -26,7 +26,8 @@ COMPILE = [("zoic.update", None), ("zoic.compile", "zoic.update")] + [
         "parse", "solve", "iris_probe", "lut", "precheck", "bokeh",
         "to_device")] + [
     (f"zoic.precheck.{p}", "zoic.compile.precheck") for p in (
-        "covers", "harmonic", "circles", "pick", "poly")]
+        "covers", "harmonic", "circles", "pick", "poly")] + [
+    ("zoic.precheck.trig", "zoic.precheck.harmonic")]
 CALL = [("zoic.camera.create_rays", None),
         ("zoic.create_rays", "zoic.camera.create_rays"),
         ("zoic.kernel_inputs", "zoic.create_rays"),

@@ -14,7 +14,10 @@ Port of what ``zoic_tpu.compile_camera`` reaches in ``zoic_tpu/pupil.py``:
   the 2-circle cover (``ops/circles_kernel.fit_circles``: its two large
   reductions in ``csrc/circles.cu`` for CUDA tensors, bit-equal), held-out
   loosening, the tighter form kept, and its polynomial form
-  (:func:`fit_profile_poly`, :func:`_poly_interval_max`);
+  (:func:`fit_profile_poly`, :func:`_poly_interval_max`); the reductions
+  over the cover samples run where the samples lie
+  (``ops/precheck_reduce``: PyTorch on the card, bit-equal), the host
+  keeping numpy's ``arctan2`` and ``cos`` and the steps on a key's values;
 * :func:`dead_film_fraction`;
 
 and what the exact eager path and the tests reach:
@@ -46,7 +49,7 @@ import numpy as np
 import torch
 
 from . import optics, trace
-from .ops import circles_kernel
+from .ops import circles_kernel, precheck_reduce
 from .optics import V3, f32
 from .system import LensSystem, PupilLUT, PupilProfile
 from .utils.profiling import span
@@ -493,20 +496,23 @@ def _cover_trace(lens: LensSystem, radii: Tensor, u: Tensor, domain: str):
     return lx, ly, ok
 
 
-def _circle_viol(a1, q1, a2, q2, lxn, lyn, okn):
+def _circle_viol(a1, q1, a2, q2, lx, ly, ok):
     """Per-key q loosening needed so every accepted sample passes BOTH
     circles: max over accepted of (rho^2 - 2 a_j lx - q_j), per circle,
     floored at 0 (0 where a key has none).  Over a key's accepted samples
     alone, and with q_j subtracted after the max: rounding is monotone, so
     max(fl(x - q)) = fl(max(x) - q) and the bits are those of the
-    reference's masked [keys, samples] form (``zoic_tpu/pupil.py``)."""
-    v1, v2 = np.zeros(len(a1)), np.zeros(len(a2))
-    for k in np.where(okn.any(1))[0]:
-        x, y = lxn[k][okn[k]], lyn[k][okn[k]]
-        rr = x * x + y * y
-        v1[k] = np.maximum((rr - 2.0 * a1[k] * x).max() - q1[k], 0.0)
-        v2[k] = np.maximum((rr - 2.0 * a2[k] * x).max() - q2[k], 0.0)
-    return v1, v2
+    reference's masked [keys, samples] form (``zoic_tpu/pupil.py``).  The
+    maxima on the card for CUDA tensors (``ops/precheck_reduce``)."""
+    t = precheck_reduce.circle_excess(lx, ly, ok, 2.0 * np.stack([a1, a2], 1))
+    return np.maximum(t[:, 0] - q1, 0.0), np.maximum(t[:, 1] - q2, 0.0)
+
+
+def _cosines(lxn, lyn) -> np.ndarray:
+    """numpy's float32 ``cos(phi)``, ``cos(2 phi)``, ``cos(4 phi)`` of the
+    samples' azimuth ``phi = arctan2(ly, lx)``, ``[3, R, N]``."""
+    phi = np.arctan2(lyn, lxn)
+    return np.stack([np.cos(phi), np.cos(2 * phi), np.cos(4 * phi)])
 
 
 def build_precheck(
@@ -554,25 +560,27 @@ def build_precheck(
             u = draw_uniforms(uniforms, name, (2, radii.shape[0], n), None, dev)
             traces.append(_cover_trace(lens, radii, u, domain))
         (lx, ly, ok), (lxh, lyh, okh), (lxm, lym, okm) = traces
-        lxn, lyn, okn = (_np(v) for v in (lx, ly, ok))
-        lxhn, lyhn, okhn = (_np(v) for v in (lxh, lyh, okh))
-        lxmn, lymn, okmn = (_np(v) for v in (lxm, lym, okm))
+        # the host reads the offsets back for numpy's arctan2 and cos alone;
+        # the reductions over the samples run where they lie
+        # (ops/precheck_reduce: on the card for CUDA tensors)
+        lxn, lyn, lxhn, lyhn, lxmn, lymn = precheck_reduce.host(
+            lx, ly, lxh, lyh, lxm, lym)
         key_acceptance = ok.to(torch.float32).mean(1)
+        live_fit = precheck_reduce.accepted(ok) > 0.0
 
     with span("zoic.precheck.harmonic"):
-        rhon = np.sqrt(lxn * lxn + lyn * lyn)
-        phin = np.arctan2(lyn, lxn)
+        n_angles = 16
+        with span("zoic.precheck.trig"):
+            phin = np.arctan2(lyn, lxn)
+            bin_idx = np.clip(
+                ((phin + np.pi) / (2 * np.pi) * n_angles).astype(np.int64), 0,
+                n_angles - 1
+            )
+            cos_h = precheck_reduce.routed(_cosines(lxhn, lyhn), lxh)
+            cos_m = precheck_reduce.routed(_cosines(lxmn, lymn), lxm)
 
         # --- harmonic fit (build_profile math, numpy f64) -------------------
-        n_angles = 16
-        bin_idx = np.clip(
-            ((phin + np.pi) / (2 * np.pi) * n_angles).astype(np.int64), 0, n_angles - 1
-        )
-        rho_max = np.zeros((n_keys, n_angles))
-        for k in range(n_keys):
-            np.maximum.at(
-                rho_max[k], bin_idx[k][okn[k]], rhon[k][okn[k]]
-            )
+        rho_max = precheck_reduce.bin_max(lx, ly, ok, bin_idx, n_angles)
         centers = (np.arange(n_angles) + 0.5) / n_angles * 2 * np.pi - np.pi
         basis = np.stack(
             [np.ones_like(centers), np.cos(centers), np.cos(2 * centers),
@@ -586,7 +594,7 @@ def build_precheck(
             hc1, hc2, hc4 = coef[1] * 1.01, coef[2] * 1.01, coef[3] * 1.01
             # reject-all bound at keys with NO accepted cover sample, set before
             # the held-out and midpoint passes (zoic_tpu/pupil.py:753-769)
-            emp = ~okn.any(1)
+            emp = ~live_fit
             hc0 = np.where(emp, -0.05, hc0)
             hc1 = np.where(emp, 0.0, hc1)
             hc2 = np.where(emp, 0.0, hc2)
@@ -597,28 +605,23 @@ def build_precheck(
             hc0 = (rho_max.max(1) + 0.005) * 1.01
             hc1 = hc2 = hc4 = np.zeros(n_keys)
 
-        def _harm_viol(radii_idx_pairs, lx_s, ly_s, ok_s):
-            rho_s = np.sqrt(lx_s * lx_s + ly_s * ly_s)
-            phi_s = np.arctan2(ly_s, lx_s)
+        def _harm_viol(chain, i_a, i_b, w_b, lx_s, ly_s, ok_s, cos_s):
+            # row r's bound lerps the chain between keys i_a[r] and i_b[r]
+            coef = np.stack([c[i_a] * (1 - w_b) + c[i_b] * w_b for c in chain])
+            v = precheck_reduce.harmonic_excess(lx_s, ly_s, ok_s, cos_s, coef)
             out = np.zeros(n_keys)
-            for row, (i_a, i_b, w_b) in enumerate(radii_idx_pairs):
-                b = (
-                    (hc0[i_a] * (1 - w_b) + hc0[i_b] * w_b)
-                    + (hc1[i_a] * (1 - w_b) + hc1[i_b] * w_b) * np.cos(phi_s[row])
-                    + (hc2[i_a] * (1 - w_b) + hc2[i_b] * w_b) * np.cos(2 * phi_s[row])
-                    + (hc4[i_a] * (1 - w_b) + hc4[i_b] * w_b) * np.cos(4 * phi_s[row])
-                )
-                v = np.where(ok_s[row], rho_s[row] - b, -np.inf).max()
-                if v > 0:
-                    out[i_a] = max(out[i_a], v)
-                    out[i_b] = max(out[i_b], v)
+            for k_a, k_b, v_r in zip(i_a, i_b, v):
+                if v_r > 0:
+                    out[k_a] = max(out[k_a], v_r)
+                    out[k_b] = max(out[k_b], v_r)
             return out
 
         # held-out at keys, then midpoints (lerped chain = kernel math)
-        hc0 = hc0 + _harm_viol([(k, k, 0.0) for k in range(n_keys)], lxhn, lyhn, okhn)
-        hc0 = hc0 + _harm_viol(
-            [(k, k + 1, 0.5) for k in range(n_keys - 1)], lxmn, lymn, okmn
-        )
+        ki = np.arange(n_keys)
+        hc0 = hc0 + _harm_viol((hc0, hc1, hc2, hc4), ki, ki, 0.0,
+                               lxh, lyh, okh, cos_h)
+        hc0 = hc0 + _harm_viol((hc0, hc1, hc2, hc4), ki[:-1], ki[1:], 0.5,
+                               lxm, lym, okm, cos_m)
 
     # --- circle fit ------------------------------------------------------
     with span("zoic.precheck.circles"):
@@ -628,7 +631,7 @@ def build_precheck(
             # rotation-invariant for the naive cover (see harmonic note)
             r_circ = rho_max.max(1) * 1.01 + 0.005
             a1 = a2 = np.zeros(n_keys)
-            q1 = q2 = np.where(okn.any(1), r_circ**2, -1.0)
+            q1 = q2 = np.where(live_fit, r_circ**2, -1.0)
         else:
             # smooth the selected center staircases with the degree-POLY_DEGREE
             # family; radii are recomputed at the moved centers over ALL
@@ -636,9 +639,8 @@ def build_precheck(
             rm_fit = min(float(r_max), float(keys_np[-1])) if r_max else float(
                 keys_np[-1]
             )
-            live = okn.any(1)
             tt = keys_np / rm_fit
-            m = (keys_np <= rm_fit) & live
+            m = (keys_np <= rm_fit) & live_fit
             if m.sum() >= 3:
                 deg = min(POLY_DEGREE, int(m.sum()) - 1)
                 vv = tt[m, None] ** np.arange(deg + 1)[None, :]
@@ -646,19 +648,19 @@ def build_precheck(
                     co, *_ = np.linalg.lstsq(vv, a[m], rcond=None)
                     a[m] = vv @ co
             m2 = circles_kernel.reach_at(lx, ly, ok, np.stack([a1, a2], 1))
-            for k in np.where(live)[0]:
+            for k in np.where(live_fit)[0]:
                 r1k = np.sqrt(m2[k, 0]) * 1.01 + 0.005
                 r2k = np.sqrt(m2[k, 1]) * 1.01 + 0.005
                 q1[k] = r1k**2 - a1[k] ** 2
                 q2[k] = r2k**2 - a2[k] ** 2
-        v1, v2 = _circle_viol(a1, q1, a2, q2, lxhn, lyhn, okhn)
+        v1, v2 = _circle_viol(a1, q1, a2, q2, lxh, lyh, okh)
         q1, q2 = q1 + v1, q2 + v2
         # midpoints: the kernel lerps (a, q); loosen BOTH bracketing keys
         a1m = (a1[:-1] + a1[1:]) * 0.5
         a2m = (a2[:-1] + a2[1:]) * 0.5
         q1m = (q1[:-1] + q1[1:]) * 0.5
         q2m = (q2[:-1] + q2[1:]) * 0.5
-        v1m, v2m = _circle_viol(a1m, q1m, a2m, q2m, lxmn, lymn, okmn)
+        v1m, v2m = _circle_viol(a1m, q1m, a2m, q2m, lxm, lym, okm)
         # raising BOTH bracketing keys' q by >= the interval's violation raises
         # the lerped midpoint by >= it; a key shared by two intervals takes the
         # larger requirement
@@ -670,21 +672,13 @@ def build_precheck(
 
     # --- pick the tighter form (film-weighted E proxy on held-out) ------
     with span("zoic.precheck.pick"):
-        acc_h = okhn.mean(1)
-        rrh = lxhn * lxhn + lyhn * lyhn
-        phih = np.arctan2(lyhn, lxhn)
-        rhoh = np.sqrt(rrh)
-        pass_harm = (
-            rhoh
-            <= hc0[:, None]
-            + hc1[:, None] * np.cos(phih)
-            + hc2[:, None] * np.cos(2 * phih)
-            + hc4[:, None] * np.cos(4 * phih)
-        ).mean(1)
-        pass_circ = (
-            ((rrh - 2 * a1[:, None] * lxhn) <= q1[:, None])
-            & ((rrh - 2 * a2[:, None] * lxhn) <= q2[:, None])
-        ).mean(1)
+        # the held-out set's pass shares: the bound of each form over all
+        # of a key's samples, the cosines those of the harmonic pass
+        acc_h = precheck_reduce.accepted(okh)
+        pass_harm = precheck_reduce.harmonic_share(
+            lxh, lyh, cos_h, np.stack([hc0, hc1, hc2, hc4]))
+        pass_circ = precheck_reduce.circle_share(
+            lxh, lyh, 2 * np.stack([a1, a2], 1), np.stack([q1, q2], 1))
         rm = float(r_max) if r_max is not None else float(keys_np[-1])
         w = np.where(keys_np <= rm, np.maximum(keys_np, keys_np[1]), 0.0)
         live = (acc_h > 1e-6) & (w > 0)
@@ -729,7 +723,6 @@ def build_precheck(
             else:
                 rm_fit = min(float(r_max), float(keys_np[-1]))
                 msk = keys_np <= rm_fit + 1e-9
-                live_fit = okn.any(1)
                 mid_msk = (keys_np[:-1] + spacing * 0.5) <= rm_fit + 1e-9
                 if bool(live_fit[msk].all()) and int(msk.sum()) >= (
                     CIRCLE_POLY_DEGREE + 2
@@ -742,33 +735,35 @@ def build_precheck(
                     vall = np.concatenate([vk, vm], 0)
                     poly = np.zeros((4, CIRCLE_POLY_DEGREE + 1))
                     deficit = 0.0
-                    for ci, (a_ch, _q_ch) in enumerate(((a1, q1), (a2, q2))):
+                    # center polys: fit the (smoothed) per-key centers
+                    ca = [np.linalg.lstsq(vk, a_ch[msk], rcond=None)[0]
+                          for a_ch in (a1, a2)]
+                    ak = np.stack([vk @ c for c in ca], 1)
+                    am = np.stack([vm @ c for c in ca], 1)
+                    # per-radius requirement against the POLY centers: the
+                    # max of (x - a)^2 + y^2 over a key's accepted fit and
+                    # held-out samples, over a midpoint's, 0 where none
+                    cen_k = np.zeros((n_keys, 2))
+                    cen_k[msk] = ak
+                    cen_m = np.zeros((n_keys - 1, 2))
+                    cen_m[mid_msk] = am
+                    reach = precheck_reduce.circle_reach
+                    req_k = np.maximum(reach(lx, ly, ok, cen_k),
+                                       reach(lxh, lyh, okh, cen_k))[msk]
+                    req_m = reach(lxm, lym, okm, cen_m)[mid_msk]
+                    reqs = np.maximum(np.concatenate([req_k, req_m]), 0.0)
+                    for ci in range(2):
                         ja, jq = 2 * ci, 2 * ci + 1
-                        # center poly: fit the (smoothed) per-key centers
-                        ca, *_ = np.linalg.lstsq(vk, a_ch[msk], rcond=None)
-                        ak, am = vk @ ca, vm @ ca
-                        a_all = np.concatenate([ak, am])
-                        # per-radius requirement against the POLY centers,
+                        ca_j = ca[ci]
+                        a_all = np.concatenate([ak[:, ci], am[:, ci]])
+                        req = reqs[:, ci]
                         # margined on the radius like the chain (x1.01, +5e-3)
-                        req = np.empty(a_all.size)
-                        for row, k in enumerate(np.where(msk)[0]):
-                            sx = np.concatenate([lxn[k][okn[k]], lxhn[k][okhn[k]]])
-                            sy = np.concatenate([lyn[k][okn[k]], lyhn[k][okhn[k]]])
-                            req[row] = (
-                                (sx - ak[row]) ** 2 + sy**2
-                            ).max() if sx.size else 0.0
-                        n_k = int(msk.sum())
-                        for row, k in enumerate(np.where(mid_msk)[0]):
-                            sx, sy = lxmn[k][okmn[k]], lymn[k][okmn[k]]
-                            req[n_k + row] = (
-                                (sx - am[row]) ** 2 + sy**2
-                            ).max() if sx.size else 0.0
                         r_m = np.sqrt(req) * 1.01 + 0.005
                         q_req = r_m**2 - a_all**2
                         cq, *_ = np.linalg.lstsq(vall, q_req, rcond=None)
                         fitq = vall @ cq
                         cq[0] += np.maximum((q_req - fitq).max(), 0.0) + 1e-4
-                        poly[ja], poly[jq] = ca, cq
+                        poly[ja], poly[jq] = ca_j, cq
                         # tightness: radius inflation of the poly circle over
                         # the margined requirement, at the validated radii
                         r_poly = np.sqrt(
