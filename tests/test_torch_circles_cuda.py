@@ -11,8 +11,9 @@ with ``reach_plain`` and ``pick_plain``; ``reach_at_plain``) on the same
 cover traces, made on the card as the compile makes them, the ``pick``
 entry against ``pick_plain``, and a compile on the card against the same
 compile with both dispatchers sent to the plain route, and with the
-pre-check's reductions (``ops/precheck_reduce``) sent there too.  Without a card
-each test skips: the kernel has no CPU mode.
+pre-check's reductions (``ops/precheck_reduce``) sent there too; and a
+compile and a call that wait on the card only in ``profiling.readback``.
+Without a card each test skips: the kernel has no CPU mode.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ import zoic_tpu_torch as zpt
 from zoic_tpu_torch import pupil as tp
 from zoic_tpu_torch.ops import circles_kernel as ck
 from zoic_tpu_torch.ops import precheck_reduce as pr
+from zoic_tpu_torch.utils import profiling
 
 COMPILE_N = 50_000
 FIT = ck.fit_circles
@@ -199,10 +201,22 @@ def test_compile_on_card_equals_numpy_precheck(cuda_dev, camera, focus,
     assert pr.calls - before in (9, 12)
     assert [e.name for e in prof.events()].count("zoic.precheck.trig") == 1
     after = pr.calls
+    want = _numpy_precheck(cfg, cuda_dev, monkeypatch)
+    assert pr.calls == after
+    _assert_same_precheck(got, want)
+
+
+def _numpy_precheck(cfg, dev, monkeypatch):
+    """The compile of ``cfg`` with the circle fit, the smoothing's reach and
+    the pre-check's reductions all in numpy."""
     _numpy_dispatch(monkeypatch)
     monkeypatch.setattr(pr, "on_card", lambda t: False)
-    want = zpt.compile_camera(cfg, cuda_dev).lens
-    assert pr.calls == after
+    return zpt.compile_camera(cfg, dev).lens
+
+
+def _assert_same_precheck(got, want):
+    """The profile's chains, polynomial and scale, the form, the poly flag
+    and the dead film, bit for bit."""
     for f in ("profile_domain", "profile_poly", "dead_frac"):
         assert getattr(got, f) == getattr(want, f), f
     gp, wp = got.profile, want.profile
@@ -211,3 +225,36 @@ def test_compile_on_card_equals_numpy_precheck(cuda_dev, camera, focus,
         g, w = getattr(gp, f), getattr(wp, f)
         assert g.is_cuda and torch.equal(g.view(torch.int32),
                                          w.view(torch.int32)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("camera", list(zpt.data.CAMERAS))
+def test_the_compile_waits_on_the_card_only_in_its_readbacks(
+        cuda_dev, camera, monkeypatch, tmp_path):
+    """A camera compiled and called once under ``torch.cuda``'s sync-debug
+    mode ``"error"``, which ``profiling.readback`` alone lifts: no copy of
+    the compile or of the raytraced wrapper's table build waits on the card
+    outside it (the uploads do not wait).  The clock counts those
+    read-backs, and the state has the bits of the numpy route's."""
+    cfg = _camera_config(camera, tmp_path)
+    u = torch.rand((4, 4096), generator=torch.Generator().manual_seed(5))
+    sx, sy, lx, ly = (u[0] * 2 - 1).to(cuda_dev), (u[1] * 2 - 1).to(
+        cuda_dev), u[2].to(cuda_dev), u[3].to(cuda_dev)
+    torch.cuda.synchronize()
+    profiling.clock_reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cam = zpt.Camera(cfg, cuda_dev)
+        rays, _ = cam.create_rays(sx, sy, lx, ly, seed=7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rays.weight.shape == (4096,)
+    spans = profiling.clock_report()["spans"]
+    reads = {p: r for (p, traced), r in spans.items()
+             if p.endswith("/" + profiling.READBACK)}
+    assert reads and all(r["bytes"] > 0 for r in reads.values())
+    assert "zoic.compile/zoic.compile.precheck/zoic.precheck.covers/" \
+        + profiling.READBACK in reads
+    assert "zoic.tables.build/" + profiling.READBACK in reads
+    _assert_same_precheck(cam.state.lens,
+                          _numpy_precheck(cfg, cuda_dev, monkeypatch))

@@ -7,7 +7,10 @@ each span is one flag read.  Under ``torch.profiler`` the lens compile,
 each under the parent listed here (the profiler's own parent links, read
 up to the nearest ``zoic.*`` span).  The two spans on cache misses,
 ``zoic.tables.build`` and ``zoic.kernel.load``, open only on the card
-(``tests/test_torch_cuda.py``).
+(``tests/test_torch_cuda.py``).  With no profiler, a focus change is on
+the cold path's clock (``profiling.clock_report``) span by span, and a
+call reads no clock (``tests/test_torch_clock.py`` holds the clock to
+known readings).
 """
 
 import collections
@@ -131,3 +134,38 @@ def test_spans_nest_as_listed_under_the_profiler(cameras, path, spans):
         (e.name, _zoic_parent(e)) for e in prof.events()
         if e.name.startswith("zoic."))
     assert got == collections.Counter(spans)
+
+
+@pytest.mark.parametrize("path", ["raytraced", "thinlens", "eager"])
+def test_a_call_adds_no_clock_record_without_a_profiler(cameras, monkeypatch,
+                                                        path):
+    """With no profiler recording, ``Camera.create_rays`` on both models'
+    kernel paths and the eager path read no clock and keep no record: no
+    span of theirs is a clock root."""
+    def refuse():
+        raise AssertionError("the clock was read on the hot path")
+
+    _run(cameras, path, focus=200.0)
+    kept = len(profiling._records)
+    monkeypatch.setattr(profiling.time, "perf_counter_ns", refuse)
+    _run(cameras, path, focus=200.0)
+    assert len(profiling._records) == kept
+
+
+def test_a_focus_change_is_clocked_without_a_profiler(cameras):
+    """With no profiler recording, ``Camera.update`` keeps one untraced
+    record of each span of the compile, by its path of clocked parents,
+    and the compile's phases and its self time make up its wall."""
+    profiling.clock_reset()
+    _run(cameras, "update", focus=400.0)
+    spans = profiling.clock_report()["spans"]
+    paths = {}
+    for name, parent in COMPILE:
+        paths[name] = name if parent is None else f"{paths[parent]}/{name}"
+    counts = {p: r["count"] for (p, traced), r in spans.items()}
+    assert counts == dict.fromkeys(paths.values(), 1)
+    assert not any(traced for _, traced in spans)
+    compile_ = spans[(paths["zoic.compile"], False)]
+    phases = sum(r["wall_s"] for (p, _), r in spans.items()
+                 if p.rsplit("/", 1)[0] == paths["zoic.compile"])
+    assert phases + compile_["self_s"] == pytest.approx(compile_["wall_s"])

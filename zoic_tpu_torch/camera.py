@@ -31,7 +31,7 @@ from .diag import tape as diag_tape
 from .models import raytraced, thinlens
 from .optics import V3
 from .system import CameraState, LensSystem, RayBatch, RayStats
-from .utils.profiling import span
+from .utils.profiling import readback, span
 
 log = logging.getLogger("zoic")
 
@@ -61,7 +61,7 @@ def _iris_identity(lens: LensSystem, config: CameraConfig, draw) -> bool:
     from film radii up to the corner) for ``c1 > 0`` on every ray that
     reaches the iris."""
     ae = lens.aperture_element
-    ior = lens.ior.tolist()
+    ior = readback(lens.ior)[0].tolist()
     if not (ae >= 0 and ior[ae] == (ior[1:] + [1.0])[ae]):
         return False
     n_r, n_s = 32, 2048
@@ -77,7 +77,7 @@ def _iris_identity(lens: LensSystem, config: CameraConfig, draw) -> bool:
         lens, V3(fx, zeros, zeros + lens.origin_shift),
         V3(px - fx, py, zeros - lens.thickness[0]),
     )
-    min_c1 = float(torch.where(reached, c1p, float("inf")).min())
+    min_c1 = float(readback(torch.where(reached, c1p, float("inf")).min())[0])
     if not min_c1 > 0.0:
         log.warning("[ZOIC] iris refract-identity skip disabled: probe found "
                     "reached-iris ray with c1 = %g <= 0", min_c1)
@@ -95,10 +95,11 @@ def _compile_lens(config: CameraConfig, device, draw) -> LensSystem:
         solve.log_report(report)
         # per-element flags: TIR possible (ior > next ior), negative
         # curvature
-        ior = lens.ior.tolist()
+        ior, curvature = (t.tolist() for t in readback(lens.ior,
+                                                        lens.curvature))
         flags = tuple(
             (1 if a > b else 0) | (2 if c < 0.0 else 0)
-            for a, b, c in zip(ior, ior[1:] + [1.0], lens.curvature.tolist())
+            for a, b, c in zip(ior, ior[1:] + [1.0], curvature)
         )
     with span("zoic.compile.iris_probe"):
         identity = _iris_identity(lens, config, draw)
@@ -291,7 +292,8 @@ class Camera:
                             "parameters didn't change.")
 
             def f32(x):
-                return torch.tensor(x, dtype=torch.float32, device=self.device)
+                return torch.tensor(x, dtype=torch.float32).to(
+                    self.device, non_blocking=True)
 
             self.state = dataclasses.replace(
                 self.state,

@@ -41,7 +41,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..system import BokehImage
-from ..utils.profiling import span
+from ..utils.profiling import readback, span
 from . import _launch, trace_kernel
 
 Tensor = torch.Tensor
@@ -222,7 +222,7 @@ def plane_tables(image: BokehImage) -> PlaneTables:
     ``k`` of a CDF is ``lo << s | (hi - lo)`` of :func:`guide_brackets`,
     ``s`` the bit length of that table's widest bracket."""
     h, w = image.height, image.width
-    packed = packed_tables(image).cpu()
+    packed = readback(packed_tables(image))[0]
     cdf_row, dy_srow, cdf_col, dx_col = table_views(packed, h, w)
     last = min(h, int((cdf_row < cdf_row[-1]).sum()) + 2) - 1
     if last < h - 1:
@@ -274,7 +274,8 @@ def _kernel_tables(image: BokehImage, dev, planes: bool):
     with span("zoic.tables.build"):
         if planes:
             t = plane_tables(image)
-            tables = t._replace(words=t.words.to(dev).contiguous())
+            tables = t._replace(
+                words=t.words.to(dev, non_blocking=True).contiguous())
         else:
             tables = packed_tables(image).to(dev).contiguous()
         for k in [k for k, v in _TABLES.items() if v[0]() is None]:

@@ -28,6 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import readback
 from . import _launch
 
 Tensor = torch.Tensor
@@ -48,7 +49,9 @@ CIRCLE_SEL_SAMPLES = 12_500   # subsample for the pair-selection pass
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+    if isinstance(x, Tensor):
+        return readback(x.detach())[0].numpy()
+    return np.asarray(x)
 
 
 def _check(*named) -> Tuple[int, int]:
@@ -101,7 +104,7 @@ def reach(lx: Tensor, ly: Tensor, ok: Tensor, centres: Tensor) -> np.ndarray:
         ok.data_ptr(), centres.data_ptr(), m2.data_ptr(), n_keys, n,
         n_centres, int(per_key))
     launches += 1
-    return m2.cpu().numpy()
+    return readback(m2)[0].numpy()
 
 
 def reach_plain(lx, ly, ok, centres) -> np.ndarray:
@@ -132,9 +135,11 @@ def pick(lx: Tensor, ly: Tensor, rk2: np.ndarray, cand: np.ndarray,
     dev = lx.device
     n_sub = -(-n // stride)
     words = -(-n_sub // 32)
-    rk2_t = torch.from_numpy(np.ascontiguousarray(rk2, np.float64)).to(dev)
-    cand_t = torch.from_numpy(np.ascontiguousarray(cand, np.float64)).to(dev)
-    idx = torch.from_numpy(np.concatenate([negi, posi]).astype(np.int32)).to(dev)
+    rk2_t, cand_t, idx = (
+        torch.from_numpy(a).to(dev, non_blocking=True) for a in (
+            np.ascontiguousarray(rk2, np.float64),
+            np.ascontiguousarray(cand, np.float64),
+            np.concatenate([negi, posi]).astype(np.int32)))
     bits = torch.empty((n_keys, words, cand.size), dtype=torch.int32,
                        device=dev)
     out = torch.empty((n_keys,), dtype=torch.int64, device=dev)
@@ -145,7 +150,7 @@ def pick(lx: Tensor, ly: Tensor, rk2: np.ndarray, cand: np.ndarray,
         bits.data_ptr(), out.data_ptr(), n_keys, n, cand.size, stride,
         negi.size, posi.size)
     launches += 1
-    packed = out.cpu().numpy().view(np.uint64)
+    packed = readback(out)[0].numpy().view(np.uint64)
     return ((packed >> np.uint64(32)).astype(np.int64),
             (packed & np.uint64(0xFFFFFFFF)).astype(np.int64))
 
@@ -189,7 +194,7 @@ def fit_circles(lx: Tensor, ly: Tensor, ok: Tensor):
     stride = max(1, n_s // CIRCLE_SEL_SAMPLES)
     # covering radius per candidate centre, over ALL accepted samples
     m2 = (reach if card else reach_plain)(
-        lx, ly, ok, torch.from_numpy(cand).to(lx.device))
+        lx, ly, ok, torch.from_numpy(cand).to(lx.device, non_blocking=True))
     live = np.where(m2[:, 0] >= 0.0)[0]
     rk = np.zeros((n_keys, cand.size))
     rk2 = np.zeros((n_keys, cand.size))
@@ -227,7 +232,8 @@ def reach_at(lx: Tensor, ly: Tensor, ok: Tensor,
     if lx.device.type == "cuda":
         return reach(lx.contiguous(), ly.contiguous(), ok.contiguous(),
                      torch.from_numpy(np.ascontiguousarray(
-                         centres, np.float64)).to(lx.device))
+                         centres, np.float64)).to(lx.device,
+                                                  non_blocking=True))
     return reach_at_plain(lx, ly, ok, centres)
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..optics import sqrt
+from ..utils.profiling import readback
 from .circles_kernel import reach_at_plain
 
 Tensor = torch.Tensor
@@ -51,11 +52,7 @@ def host(*ts: Tensor):
     a recompile reuses them), in one synchronise."""
     if not ts[0].is_cuda:
         return [_host(t) for t in ts]
-    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in ts]
-    for b, t in zip(bufs, ts):
-        b.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(ts[0].device).synchronize()
-    return [b.numpy() for b in bufs]
+    return [b.numpy() for b in readback(*ts, pinned=True)]
 
 
 def routed(a: np.ndarray, like):
@@ -71,7 +68,9 @@ def routed(a: np.ndarray, like):
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+    if isinstance(x, Tensor):
+        return readback(x.detach())[0].numpy()
+    return np.asarray(x)
 
 
 def _to_card(like, *arrays):
@@ -79,7 +78,8 @@ def _to_card(like, *arrays):
     ``arrays`` (a row's coefficients) beside the samples ``like``."""
     global calls
     calls += 1
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+                     like.device, non_blocking=True)
                  for a in arrays)
 
 

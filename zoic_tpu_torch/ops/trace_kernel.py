@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from ..system import LensSystem
-from ..utils.profiling import counter_totals, span
+from ..utils.profiling import counter_totals, readback, span
 from . import _launch
 from .epilogue_kernel import epilogue_plain, exposure_on
 
@@ -164,7 +164,7 @@ def shaping_table(lens: LensSystem, use_lut: bool = True,
         ms = ce = torch.zeros_like(keys)
     else:
         return (torch.zeros((1, 6), dtype=torch.float32, device=dev),
-                torch.tensor(1.0, dtype=torch.float32, device=dev))
+                torch.ones((), dtype=torch.float32, device=dev))
     if use_profile:
         prof = lens.profile
         cols = [prof.c0, prof.c1, prof.c2, prof.c4]
@@ -190,15 +190,15 @@ def kernel_scalars(lens: LensSystem, sensor_width: Tensor, spacing: Tensor,
     elif use_profile:
         inv_dmax = 1.0 / prof.keys[-1].to(f)
     else:
-        inv_dmax = torch.tensor(1.0, dtype=f, device=dev)
+        inv_dmax = torch.ones((), dtype=f, device=dev)
     return torch.stack(
         [
             lens.origin_shift.to(f),
             -lens.thickness[0],
-            torch.tensor(float(seed), dtype=f, device=dev),
+            torch.tensor(float(seed), dtype=f).to(dev, non_blocking=True),
             lens.aperture[0],
             spacing.to(f),
-            torch.tensor(float(batch), dtype=f, device=dev),
+            torch.tensor(float(batch), dtype=f).to(dev, non_blocking=True),
             sw * 0.5,
             inv_dmax,
         ]
@@ -747,8 +747,8 @@ def _kernel_tables(lens: LensSystem, sensor_width, dev, v: Variant):
                 f"{MAX_COEF})"
             )
         elems, prof, scal = (
-            np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
-            for t in (elems, prof, scal))
+            np.ascontiguousarray(t.numpy(), dtype=np.float32)
+            for t in readback(elems.detach(), prof.detach(), scal.detach()))
         if v.flags:
             flags = np.asarray(v.flags)
             elems[:, 6] = np.where(flags & 1, 1.0, np.inf)

@@ -38,12 +38,20 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def upload(a, device, dtype=torch.float32) -> Tensor:
+    """``torch.tensor(a, dtype=dtype)`` on ``device``.  The copy to a card
+    does not wait for it: a blocking copy synchronises the stream, so the
+    host would wait for every queued launch, while a non-blocking one from
+    pageable memory is staged before the call returns."""
+    return torch.tensor(a, dtype=dtype).to(device, non_blocking=True)
+
+
 def div(a: Tensor, b) -> Tensor:
     """``a / b`` by true division.  A Python number ``b`` becomes a 0-d
     float32 tensor on ``a``'s device first: PyTorch computes a tensor over a
     host scalar on the card as a multiply by its reciprocal, one ulp off."""
     if not isinstance(b, Tensor):
-        b = torch.tensor(b, dtype=torch.float32, device=a.device)
+        b = upload(b, a.device)
     return a / b
 
 
@@ -100,7 +108,10 @@ class V3(NamedTuple):
 
 def v3(x: Scalar, y: Scalar, z: Scalar, device=None) -> V3:
     def t(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
+        x = torch.as_tensor(a, dtype=torch.float32)
+        if device is None:
+            return x
+        return x.to(device, non_blocking=x.device.type == "cpu")
 
     return V3(t(x), t(y), t(z))
 

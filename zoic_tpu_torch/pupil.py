@@ -52,7 +52,7 @@ from . import optics, trace
 from .ops import circles_kernel, precheck_reduce
 from .optics import V3, f32
 from .system import LensSystem, PupilLUT, PupilProfile
-from .utils.profiling import span
+from .utils.profiling import readback, span
 
 Tensor = torch.Tensor
 
@@ -80,7 +80,8 @@ def draw_uniforms(uniforms: Optional[Mapping], name: str, shape,
         u = uniforms[name]
         if not isinstance(u, Tensor):
             u = torch.from_numpy(np.array(u, dtype=np.float32))
-        u = u.to(device=device, dtype=torch.float32)
+        u = u.to(device=device, dtype=torch.float32,
+                 non_blocking=u.device.type == "cpu")
         if tuple(u.shape) != shape:
             raise ValueError(f"uniforms[{name!r}] has shape "
                              f"{tuple(u.shape)}, expected {shape}")
@@ -90,7 +91,9 @@ def draw_uniforms(uniforms: Optional[Mapping], name: str, shape,
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+    if isinstance(x, Tensor):
+        return readback(x.detach())[0].numpy()
+    return np.asarray(x)
 
 
 def build_lut(
@@ -408,7 +411,7 @@ def fit_profile_poly(profile: PupilProfile,
     c0, c1, c2, c4 = (
         _np(v).astype(np.float64)
         for v in profile_lookup(
-            profile, torch.tensor(np.asarray(d, np.float32), device=dev))
+            profile, optics.upload(np.asarray(d, np.float32), dev))
     )
     targ = np.stack([c0, c1, c2, c4])                    # [4, n_grid]
     v = t[:, None] ** np.arange(POLY_DEGREE + 1)[None, :]
@@ -453,8 +456,8 @@ def fit_profile_poly(profile: PupilProfile,
     # azimuth-grid spacing
     poly[0, 0] += max(deficit, 0.0) + 1e-4
     return (
-        torch.tensor(poly, dtype=torch.float32, device=dev),
-        torch.tensor(np.float32(scale), device=dev),
+        optics.upload(poly, dev),
+        optics.upload(np.float32(scale), dev),
         float(deficit),
     )
 
@@ -467,7 +470,7 @@ def fit_precheck_poly(profile: PupilProfile, r_max: Optional[float] = None):
     if profile.kind == "circles":
         keys = profile.keys
         scale = keys[-1] if r_max is None else torch.minimum(
-            torch.tensor(f32(r_max), device=keys.device), keys[-1])
+            optics.upload(f32(r_max), keys.device), keys[-1])
         return (torch.zeros((4, CIRCLE_POLY_DEGREE + 1), dtype=torch.float32,
                             device=keys.device), scale, float("inf"))
     return fit_profile_poly(profile, r_max=r_max)
@@ -551,8 +554,7 @@ def build_precheck(
 
         # --- fit set + held-out set at the keys, midpoint held-out between --
         n_mid = max(n_samples // 2, 1)
-        mids = torch.tensor(keys_np[:-1] + spacing * 0.5, dtype=torch.float32,
-                            device=dev)
+        mids = optics.upload(keys_np[:-1] + spacing * 0.5, dev)
         traces = []
         for name, radii, n in (("cover_fit", keys, n_samples),
                                ("cover_held", keys, n_samples),
@@ -697,7 +699,7 @@ def build_precheck(
         chains = (a1, q1, a2, q2) if kind == "circles" else (hc0, hc1, hc2, hc4)
 
         def t32(a):
-            return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+            return optics.upload(np.asarray(a), dev)
 
         prof = PupilProfile(
             keys=keys,
@@ -773,6 +775,6 @@ def build_precheck(
                     prof = dataclasses.replace(
                         prof,
                         poly=t32(poly),
-                        poly_scale=torch.tensor(np.float32(rm_fit), device=dev),
+                        poly_scale=optics.upload(np.float32(rm_fit), dev),
                     )
     return prof, key_acceptance, deficit

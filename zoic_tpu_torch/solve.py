@@ -28,6 +28,7 @@ from . import lensfile, optics
 from .config import CameraConfig
 from .optics import V3, div, f32, v3
 from .system import LensSystem
+from .utils.profiling import readback
 
 log = logging.getLogger("zoic")
 
@@ -46,7 +47,7 @@ class Prescription(NamedTuple):
 
 def from_lensfile(rx: lensfile.LensPrescription, device="cuda") -> Prescription:
     def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
+        return optics.upload(np.asarray(a, np.float32), device)
 
     return Prescription(t(rx.curvature), t(rx.thickness), t(rx.ior),
                         t(rx.abbe), t(rx.aperture))
@@ -73,7 +74,7 @@ def trace_focal_length(p: Prescription) -> FocalTrace:
     height = p.aperture[0] * f32(0.1)
     o = v3(0.0, height, 0.0, device=dev)
     d = v3(0.0, 0.0, 99999.0, device=dev)
-    summed = torch.tensor(0.0, dtype=torch.float32, device=dev)
+    summed = optics.upload(0.0, dev)
     ior_next = _ior_next(p)
     o_last = d_last = None
     for i in range(e):
@@ -118,8 +119,9 @@ def image_distance(p: Prescription, object_distance: Tensor) -> Tensor:
     intersect y = 0 for the film-plane z of the requested focal distance."""
     dev = p.curvature.device
     e = p.curvature.shape[0]
-    zero = torch.tensor(0.0, dtype=torch.float32, device=dev)
-    od = torch.as_tensor(object_distance, dtype=torch.float32, device=dev)
+    zero = optics.upload(0.0, dev)
+    od = torch.as_tensor(object_distance, dtype=torch.float32)
+    od = od.to(dev, non_blocking=od.device.type == "cpu")
     origin = V3(zero, zero, od)
     direction = V3(zero, div(p.aperture[e - 1], 2.0) * f32(0.05), -od)
     # conditioning fix of the JAX package (zoic_tpu/solve.py:150-158): the
@@ -179,8 +181,7 @@ def solve_lens(rx: lensfile.LensPrescription, config: CameraConfig,
     p = from_lensfile(rx, device)
     ae = rx.aperture_element
     t1 = trace_focal_length(p)
-    ratio = div(torch.tensor(config.focal_length, dtype=torch.float32,
-                             device=device), t1.focal_length)
+    ratio = div(optics.upload(config.focal_length, device), t1.focal_length)
     p2 = rescale(p, ratio)
     t2 = trace_focal_length(p2)
 
@@ -195,7 +196,7 @@ def solve_lens(rx: lensfile.LensPrescription, config: CameraConfig,
     origin_shift = image_distance(p2, f32(config.focal_distance))
     ap_dist = aperture_distance(p2, ae)
     centers = lens_centers(p2)
-    sw, sh = (torch.tensor(v, dtype=torch.float32, device=device)
+    sw, sh = (optics.upload(v, device)
               for v in (config.sensor_width, config.sensor_height))
     film_diag = optics.sqrt(sw * sw + sh * sh)
 
@@ -212,8 +213,7 @@ def solve_lens(rx: lensfile.LensPrescription, config: CameraConfig,
         focal_length_ratio=ratio,
         traced_focal_length=t2.focal_length,
         film_diagonal=film_diag,
-        focal_distance=torch.tensor(config.focal_distance,
-                                    dtype=torch.float32, device=device),
+        focal_distance=optics.upload(config.focal_distance, device),
         lut=None,
         aperture_element=ae,
     )
@@ -251,6 +251,7 @@ def log_report(report: dict) -> None:
     messages (zoic.cpp:1198-1224, 1091-1092, 1655-1682)."""
     if not log.isEnabledFor(logging.INFO):
         return
-    for key, label in _LABELS.items():
-        if key in report:
-            log.info("%-40s %12.8f", label, float(report[key]))
+    keys = [k for k in _LABELS if k in report]
+    values = readback(*(torch.as_tensor(report[k]) for k in keys))
+    for key, value in zip(keys, values):
+        log.info("%-40s %12.8f", _LABELS[key], float(value))

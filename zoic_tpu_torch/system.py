@@ -27,7 +27,9 @@ def _to(obj, device):
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
-            changes[f.name] = v.to(device)
+            # a copy to a card need not wait for it; one to the host must
+            changes[f.name] = v.to(device,
+                                   non_blocking=v.device.type == "cpu")
         elif dataclasses.is_dataclass(v):
             changes[f.name] = _to(v, device)
     return dataclasses.replace(obj, **changes)
